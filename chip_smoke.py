@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles ``src/repro_torch/csrc/relational.cu`` with nvcc.
+  2. build       compiles the three kernels of ``src/repro_torch/csrc/``
+                 (relational, rmsnorm, flash_attention), one nvcc each, all
+                 started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -31,7 +33,33 @@ Phases (any failure exits non-zero and prints no result):
   5. reuse       version 1 materialized on the torch plane, version 2 (an
                  edit below the join) served from the store: operators
                  reused, sinks and sink digests equal to a full numpy run.
-  6. report      one JSON line of kernels, then the result line.
+  6. llm-kernels flash attention and RMSNorm against their plain PyTorch
+                 versions on the card: flash attention at the prefill shape
+                 (B=2, S=T=4096, H=32, KV=8, D=128, bf16, causal), at
+                 window=1024, chunk=1024, q_offset>0 with S<T, causal=False,
+                 a tail S=4095, and fp32 at a small shape; RMSNorm at
+                 (8192, 4096) bf16, decode rows (4, 1, 4096), fp32, D=5376,
+                 D=12288 and D=4097.  Tolerances: attention fp32 2e-6, bf16
+                 2e-2 (atol = rtol); RMSNorm fp32 1e-6, bf16 one bf16 unit in
+                 the last place.  Each kernel is timed at the prefill shape
+                 beside its plain version, one PyTorch library call and its
+                 bound.
+  7. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
+                 weights drawn from --seed on the card: ``forward_step`` on
+                 2 prompts of 4096 tokens through the kernels (32 flash
+                 attention and 65 RMSNorm launches), ``greedy_generate`` on
+                 4 prompts of 128 tokens with 32 new tokens (prefill wall
+                 time, decode tokens per second, memory high-water mark);
+                 then the same forward on the plain path (no launch), with
+                 every flash attention and RMSNorm input of it also given
+                 to the kernel (each within its tolerance), the logits
+                 against the kernel path's beside a control (the plain path
+                 summed in another order), and 64 decode steps against the
+                 forward's logits on both paths (see LOGIT_TOL).
+  8. report      one JSON line of kernels, then the result line.
+
+Options: ``--seed N`` (default 0) seeds the serving phase's weights and
+tokens.
 """
 
 from __future__ import annotations
@@ -48,6 +76,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP64_FLOP_PER_S = 34e12        # H100 SXM float64 outside the tensor cores
+BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 MAIN_ROWS = 1_000_000
 KERNEL_SIZES = (0, 1, 7, 1023, 1025, 1_000_000, 16_000_000)
 TIMED_SIZES = (1_000_000, 16_000_000)
@@ -86,16 +116,41 @@ def phase_device():
 # -- 2. build ------------------------------------------------------------------
 
 
-def phase_build():
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import relational as R
+    from repro_torch.kernels import rmsnorm as RMS
 
-    info = R.build()
-    log(f"build: relational.cu in {info['seconds']:.2f} s (cached={info['cached']})")
-    for line in str(info["log"]).splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  ptxas: {line.strip()}")
-    R._library()  # load it and check the plan layout against the source
-    return info
+    return R, RMS, FA
+
+
+def _reset_counts():
+    R, RMS, FA = _kernel_modules()
+    R.relational.launches = RMS.rmsnorm.launches = FA.flash_attention.launches = 0
+
+
+def _counts():
+    R, RMS, FA = _kernel_modules()
+    return {"relational": R.relational.launches, "rmsnorm": RMS.rmsnorm.launches,
+            "flash_attention": FA.flash_attention.launches}
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    R, RMS, FA = _kernel_modules()
+    t0 = time.perf_counter()
+    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE)
+    wall = time.perf_counter() - t0
+    for name, info in infos.items():
+        log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
+        for line in str(info["log"]).splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  ptxas: {line.strip()}")
+    # load each and check the relational plan layout against the source
+    R._library(), RMS._library(), FA._library()
+    log(f"build: all kernels in {wall:.2f} s of wall time")
+    return {"seconds": wall}
 
 
 # -- 3. kernel against its plain version -----------------------------------------
@@ -227,9 +282,11 @@ def _call_ms(fn, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def _bound_ms(nbytes: float, flops: float):
+def _bound_ms(nbytes: float, flops: float, flop_rate: float = FP64_FLOP_PER_S):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -523,36 +580,6 @@ def _all_identical(ref, got, what):
             fail(f"{what}: sink {s} differs between the numpy and torch planes")
 
 
-def _device_busy(run):
-    """Device time of one run from torch.profiler, by kind: host<->device
-    copies, the relational kernel, everything else on the device; with the
-    run's wall time inside the profiled window.  None where the profiler
-    saw no device activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = {"copy_s": 0.0, "relational_kernel_s": 0.0, "other_s": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        name = ev.key.lower()
-        kind = ("copy_s" if "memcpy" in name else
-                "relational_kernel_s" if "relational_kernel" in name else "other_s")
-        busy[kind] += ev.device_time_total / 1e6
-    if not any(busy.values()):
-        return None
-    busy["wall_s"] = wall
-    busy["idle_share"] = 1.0 - sum(v for k, v in busy.items() if k.endswith("_s") and k != "wall_s") / wall
-    return busy
-
-
 def _host_breakdown(plane, run):
     """Host wall time of one run, per operator, and the time spent in the
     plane's host<->device copies (each copy timed between synchronizations,
@@ -607,11 +634,11 @@ def phase_main_path():
     ref = execute(dag, sources, plane="numpy")
     t_numpy = time.perf_counter() - t0
 
-    R.relational.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     res = ExecutionPlan(dag, sources).run()
     t_torch = time.perf_counter() - t0
-    launches = R.relational.launches
+    launches = _counts()["relational"]
 
     _all_identical(ref, res.results, "hot chain")
     if launches <= 0:
@@ -627,13 +654,14 @@ def phase_main_path():
     ops = ", ".join(f"{k} {v:.3f}" for k, v in sorted(per_op.items(), key=lambda kv: -kv[1]))
     log(f"main path: instrumented torch run {wall:.3f} s; host<->device copies {copy_s:.4f} s "
         f"({100 * copy_s / wall:.2f}%); per operator (s): {ops}")
-    busy = _device_busy(run)
+    busy = _device_profile(run, kinds=(("copy", ("memcpy",)), ("relational", ("relational_kernel",))))
     if busy is None:
         log("main path: device busy time not measured (the profiler saw no device activity)")
     else:
+        kinds = busy["by_kind"]
         log(f"main path: profiled torch run {busy['wall_s']:.3f} s; device time: copies "
-            f"{busy['copy_s']:.4f} s, relational kernel {busy['relational_kernel_s']:.6f} s, "
-            f"other {busy['other_s']:.4f} s; device idle share {busy['idle_share']:.4f}")
+            f"{kinds['copy']:.4f} s, relational kernel {kinds['relational']:.6f} s, "
+            f"other {kinds['other']:.4f} s; device idle share {busy['idle_share']:.4f}")
 
     # the kernel's timing at the main path's own shape: f1 over s1's columns
     import torch
@@ -686,18 +714,17 @@ def phase_main_path():
 
 def phase_reuse():
     from repro_torch.engine import ExecutionPlan, InMemoryMaterializationStore, table_digest
-    from repro_torch.kernels import relational as R
 
     v1 = hot_chain()
     v2 = v1.replace_op(v1.ops["dm"].with_props(entries=(1.0, 2.0, 4.0, 8.0, 16.0)))
     sources = hot_sources(MAIN_ROWS, seed=2)
     store = InMemoryMaterializationStore()
 
-    R.relational.launches = 0
+    _reset_counts()
     ExecutionPlan(v1, sources).run(store=store, materialize=True)
     plan2 = ExecutionPlan(v2, sources)
     res2 = plan2.run(store=store, serve_from_store=True, materialize=True)
-    launches = R.relational.launches
+    launches = _counts()["relational"]
     ref_plan = ExecutionPlan(v2, sources, plane="numpy")
     ref2 = ref_plan.run()
     if res2.stats.ops_reused <= 0:
@@ -716,7 +743,509 @@ def phase_reuse():
     return launches
 
 
+# -- 6. the LLM kernels against their plain versions -----------------------------
+
+# Logits of the kernel path against the plain path, bf16, atol = rtol: fixed
+# before the first run.  At full depth with random weights the model amplifies
+# any rounding difference, so no implementation meets it free running: the plain
+# path against itself summed in another order parts by ~0.33 (PERF.md, section 6).
+# The distance is reported in units of it; the gates are each kernel on the main
+# path's own tensors at its tolerance, and the end-to-end logits (forward, and
+# decode against forward) within CONTROL_FACTOR times the plain path's own
+# reordering or decode distance.
+LOGIT_TOL = 2e-2
+CONTROL_FACTOR = 2.0
+PREFILL = dict(B=2, S=4096, T=4096, H=32, KV=8, D=128)
+
+# (name, shape, dtype, masks): the prefill shape first, then every mask and tail
+FLASH_CASES = (
+    ("prefill causal", PREFILL, "bf16", dict(causal=True)),
+    ("window 1024", PREFILL, "bf16", dict(causal=True, window=1024)),
+    ("chunk 1024", PREFILL, "bf16", dict(causal=True, chunk=1024)),
+    ("q_offset 3072, S<T", dict(PREFILL, S=1024), "bf16", dict(causal=True, q_offset=3072)),
+    ("not causal", dict(PREFILL, B=1, S=2048, T=2048), "bf16", dict(causal=False)),
+    ("tail S=T=4095", dict(PREFILL, S=4095, T=4095), "bf16", dict(causal=True)),
+    ("fp32 small", dict(B=2, S=512, T=512, H=8, KV=2, D=128), "fp32", dict(causal=True)),
+    ("fp32 window, tail", dict(B=1, S=333, T=333, H=4, KV=1, D=64), "fp32", dict(causal=True, window=100)),
+)
+# (name, x shape, dtype): the prefill's rows first
+RMS_CASES = (
+    ("prefill rows", (2, 4096, 4096), "bf16"),
+    ("decode rows", (4, 1, 4096), "bf16"),
+    ("fp32", (2, 4096, 4096), "fp32"),
+    ("gemma3 D=5376", (4096, 5376), "bf16"),
+    ("command-r D=12288", (2048, 12288), "bf16"),
+    ("odd D=4097", (1000, 4097), "fp32"),
+)
+
+
+def _dtype(name):
+    import torch
+
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
+
+
+def _randn(gen, shape, dtype, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _visible_pairs(S, T, causal=True, window=None, chunk=None, q_offset=0):
+    """(q, k) pairs a mask leaves visible, per batch and head: the work the
+    kernel must do on these inputs."""
+    import numpy as np
+
+    q = np.arange(S, dtype=np.int64) + q_offset
+    lo = np.zeros(S, dtype=np.int64)
+    hi = np.full(S, T - 1, dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, q)
+    if window is not None:
+        lo = np.maximum(lo, q - window + 1)
+    if chunk is not None:
+        lo = np.maximum(lo, (q // chunk) * chunk)
+        hi = np.minimum(hi, (q // chunk) * chunk + chunk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _bf16_ulp_ok(got, want) -> bool:
+    """Every value within one bf16 unit in the last place of the plain one."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return bool(((got.float() - w).abs() <= ulp).all())
+
+
+def phase_llm_kernels(seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    _, RMS, FA = _kernel_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 100)
+    out = {}
+
+    max_err = 0.0
+    for name, shape, dt, masks in FLASH_CASES:
+        B, S, T, H, KV, D = (shape[k] for k in ("B", "S", "T", "H", "KV", "D"))
+        dtype = _dtype(dt)
+        q = _randn(gen, (B, S, H, D), dtype, 0.5)
+        k = _randn(gen, (B, T, KV, D), dtype, 0.5)
+        v = _randn(gen, (B, T, KV, D), dtype, 0.5)
+        got = FA.flash_attention(q, k, v, **masks)
+        want = ref.flash_attention_reference(q, k, v, **masks)
+        torch.cuda.synchronize()
+        tol = 2e-6 if dt == "fp32" else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            fail(f"flash attention {name}: kernel differs from the plain version "
+                 f"(max abs {err:.3e}, tolerance {tol})")
+        log(f"llm-kernels: flash attention {name} {dt} B={B} S={S} T={T} H={H} KV={KV} D={D} "
+            f"{masks}: max abs err {err:.3e} (tol {tol})")
+        if name == "prefill causal":
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+            pairs = B * H * _visible_pairs(S, T, **masks)
+            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+            bound, by = _bound_ms(nbytes, 4 * D * pairs, BF16_TENSOR_FLOP_PER_S)
+            timing = {
+                "ms": _time_ms(lambda: FA.flash_attention(q, k, v, **masks)),
+                "plain_ms": _time_ms(lambda: ref.flash_attention_reference(q, k, v, **masks), reps=5),
+                "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                "bound_ms": bound, "bound_by": by,
+            }
+            log(f"llm-kernels: flash attention at the prefill shape: kernel {timing['ms']:.4f} ms, "
+                f"plain {timing['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                f"{timing['library_ms']:.4f} ms (max abs {lib_err:.3e} from the plain version), "
+                f"bound {bound:.4f} ms ({by}; {pairs} visible pairs, {nbytes} bytes); "
+                f"kernel at {4 * D * pairs / timing['ms'] / 1e9:.2f} TFLOP/s")
+        del q, k, v, got, want
+    out["flash_attention"] = dict(timing, max_abs_err=max_err)
+
+    max_err = 0.0
+    for name, shape, dt in RMS_CASES:
+        dtype = _dtype(dt)
+        x = _randn(gen, shape, dtype)
+        w = _randn(gen, shape[-1:], torch.float32)
+        got = RMS.rmsnorm(x, w, 1e-5)
+        want = ref.rmsnorm_reference(x, w, 1e-5)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        max_err = max(max_err, err)
+        ok = (torch.allclose(got, want, atol=1e-6, rtol=1e-6) if dt == "fp32"
+              else _bf16_ulp_ok(got, want))
+        if not ok:
+            fail(f"rmsnorm {name}: kernel differs from the plain version (max abs {err:.3e})")
+        log(f"llm-kernels: rmsnorm {name} {dt} {shape}: max abs err {err:.3e} "
+            f"({'1e-6' if dt == 'fp32' else 'one bf16 ulp'})")
+        if name == "prefill rows":
+            D = shape[-1]
+            nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
+            bound, by = _bound_ms(nbytes, 4 * x.numel(), FP32_FLOP_PER_S)
+            # the same inputs (fp32 weight), and the fused path, which wants the
+            # weight in x's dtype (logged only: its weight is rounded to bf16)
+            w_x = w.to(dtype)
+            timing = {
+                "ms": _time_ms(lambda: RMS.rmsnorm(x, w, 1e-5)),
+                "plain_ms": _time_ms(lambda: ref.rmsnorm_reference(x, w, 1e-5)),
+                "library_ms": _time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
+                "bound_ms": bound, "bound_by": by,
+            }
+            fused_ms = _time_ms(lambda: F.rms_norm(x, (D,), w_x, 1e-5))
+            log(f"llm-kernels: rmsnorm at the prefill rows {shape}: kernel {timing['ms']:.4f} ms, "
+                f"plain {timing['plain_ms']:.4f} ms, F.rms_norm {timing['library_ms']:.4f} ms "
+                f"(fp32 weight; {fused_ms:.4f} ms with the weight in x's dtype), "
+                f"bound {bound:.4f} ms ({by}); kernel at {nbytes / timing['ms'] / 1e9:.1f} GB/s")
+        del x, got, want
+    out["rmsnorm"] = dict(timing, max_abs_err=max_err)
+    return out
+
+
+# -- 7. serve llama3-8b ------------------------------------------------------------
+
+
+def _sync_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+class _recording:
+    """Record the input of every block of ``lm_forward`` and the last
+    block's output: ``xs[l]`` enters layer l, ``xs[-1]`` leaves the last."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as T
+
+        self.T, self.xs = T, []
+
+    def __enter__(self):
+        orig = self.orig = self.T._block_fwd
+
+        def rec(lp, x, *a):
+            self.xs.append(x)
+            self.out = orig(lp, x, *a)
+            return self.out
+
+        self.T._block_fwd = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.T._block_fwd = self.orig
+        self.xs.append(self.out)
+
+
+def _plain_blocks(q_block: int):
+    """Context in which the plain path's flash attention uses ``q_block`` =
+    ``kv_block`` (the reference's default is 512): the same function summed
+    in another order."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = dict(ops.flash_attention.__kwdefaults__)
+        ops.flash_attention.__kwdefaults__.update(q_block=q_block, kv_block=q_block)
+        try:
+            yield
+        finally:
+            ops.flash_attention.__kwdefaults__.update(saved)
+
+    return ctx()
+
+
+def _compare(a, b, tol):
+    """(max abs diff, worst diff / (tol + tol*|b|), argmax agreements) over
+    the leading axis, in fp32, one slice at a time."""
+    worst, ratio, agree = 0.0, 0.0, 0
+    for i in range(a.shape[0]):
+        x, y = a[i].float(), b[i].float()
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / (tol + tol * y.abs())).max()))
+        agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+    return worst, ratio, agree
+
+
+def _layer_divergence(xa, xp):
+    """Largest |xa - xp| over largest |xp| for each recorded layer."""
+    return [float((a.float() - b.float()).abs().max() / b.float().abs().max()) for a, b in zip(xa, xp)]
+
+
+class _kernels_on_plain_inputs:
+    """While the plain path runs, hand every flash attention and RMSNorm
+    input it computes to the kernel as well, and keep the worst distance
+    of the kernel's result from the plain one, in units of the kernel's
+    tolerance (flash attention 2e-2 bf16 / 2e-6 fp32, atol = rtol; RMSNorm
+    one bf16 unit in the last place / 1e-6): the kernels held to their
+    plain versions on the main path's own tensors, layer by layer."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        _, RMS, FA = _kernel_modules()
+        self.ops, self.fa, self.rms = ops, ops.flash_attention, ops.rmsnorm
+        self.worst = {"flash_attention": 0.0, "rmsnorm": 0.0}
+        self.calls = {"flash_attention": 0, "rmsnorm": 0}
+
+        def fa(q, k, v, **kw):
+            out = self.fa(q, k, v, **kw)
+            masks = {n: kw[n] for n in ("causal", "window", "chunk", "q_offset") if n in kw}
+            tol = 2e-6 if q.dtype == torch.float32 else 2e-2
+            d = (FA.flash_attention(q, k, v, **masks).float() - out.float()).abs()
+            self._note("flash_attention", float((d / (tol + tol * out.float().abs())).max()))
+            return out
+
+        def rms(x, w, eps=1e-5, *, impl="auto"):
+            out = self.rms(x, w, eps, impl=impl)
+            d = (RMS.rmsnorm(x, w, eps).float() - out.float()).abs()
+            y = out.float().abs()
+            unit = (torch.exp2(torch.floor(torch.log2(y.clamp_min(1e-30))) - 7)
+                    if x.dtype == torch.bfloat16 else 1e-6 + 1e-6 * y)
+            self._note("rmsnorm", float((d / unit).max()))
+            return out
+
+        ops.flash_attention, ops.rmsnorm = fa, rms
+        return self
+
+    def _note(self, name, ratio):
+        self.worst[name] = max(self.worst[name], ratio)
+        self.calls[name] += 1
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.rmsnorm = self.fa, self.rms
+
+
+def _decode_against_forward(model, params, tokens, logits, n: int = 64):
+    """Max abs difference of ``n`` decode steps' logits from the forward's
+    logits at the same positions."""
+    from repro_torch.serve import init_caches
+
+    caches = init_caches(model, tokens.shape[0], n)
+    worst = 0.0
+    for t in range(n):
+        lg, caches = model.decode_step(params, caches, tokens[:, t], t)
+        worst = max(worst, float((lg - logits[:, t].float()).abs().max()))
+    return worst
+
+
+# device-time kinds of the serving path, by kernel-name substring
+SERVE_KINDS = (
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("rmsnorm", ("rmsnorm_kernel",)),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "wgmma", "sm90_")),
+    ("copy_cast", ("copy", "memcpy", "memset")),
+)
+
+
+def _device_profile(run, kinds=SERVE_KINDS, top: int = 6):
+    """One profiled run: its wall time, device time by kind (the first
+    kind whose substring is in the kernel's name, else "other"), the idle
+    share of the window, and the ``top`` kernels by device time.  None
+    where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind = {name: 0.0 for name, _ in kinds}
+    by_kind["other"] = 0.0
+    names = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or not ev.device_time_total:
+            continue
+        sec = ev.device_time_total / 1e6
+        names.append((sec, ev.key))
+        low = ev.key.lower()
+        kind = next((name for name, subs in kinds if any(x in low for x in subs)), "other")
+        by_kind[kind] += sec
+    busy = sum(by_kind.values())
+    if not busy:
+        return None
+    return {"wall_s": wall, "busy_s": busy, "idle_share": max(0.0, 1.0 - busy / wall),
+            "by_kind": by_kind, "top": sorted(names, reverse=True)[:top]}
+
+
+def _log_profile(what, prof):
+    if prof is None:
+        log(f"serve: {what}: device time not measured (the profiler saw no device activity)")
+        return
+    kinds = ", ".join(f"{k} {v * 1e3:.2f}" for k, v in prof["by_kind"].items())
+    top = "; ".join(f"{name[:60]} {sec * 1e3:.2f}" for sec, name in prof["top"])
+    log(f"serve: {what}: wall {prof['wall_s'] * 1e3:.2f} ms, device busy {prof['busy_s'] * 1e3:.2f} ms "
+        f"(idle share {prof['idle_share']:.4f}); device ms by kind: {kinds}; top kernels (ms): {top}")
+
+
+def phase_serve(seed: int):
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate, init_caches
+
+    cfg = get_arch("llama3-8b")
+    model = build_model(cfg)  # attn_impl="auto": the kernels on the card
+    plain = build_model(cfg, attn_impl="reference")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = _sync_s(lambda: model.init(seed, device="cuda"))
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {n_params} parameters "
+        f"(fp32, {n_params * 4 / 1e9:.1f} GB) drawn from seed {seed} in {t_init:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    batch = {"tokens": torch.randint(2, cfg.vocab, (2, 4097), generator=gen, device="cuda")}
+
+    _reset_counts()
+    logits, t_fwd = _sync_s(lambda: model.forward_step(params, batch))
+    fwd_counts = _counts()
+    if fwd_counts["flash_attention"] != cfg.n_layers or fwd_counts["rmsnorm"] != 2 * cfg.n_layers + 1:
+        fail(f"serve: forward_step launched {fwd_counts}, expected {cfg.n_layers} flash "
+             f"attention and {2 * cfg.n_layers + 1} rmsnorm")
+    if tuple(logits.shape) != (2, 4096, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"serve: forward logits of shape {tuple(logits.shape)} or not finite")
+    _, t_fwd2 = _sync_s(lambda: model.forward_step(params, batch))
+    log(f"serve: forward_step on 2 x 4096 tokens: {t_fwd:.3f} s (first call), {t_fwd2:.3f} s "
+        f"(second); launches {fwd_counts}")
+
+    prompts = torch.randint(2, cfg.vocab, (4, 128), generator=gen, device="cuda")
+    greedy_generate(model, params, prompts[:, :8], max_new_tokens=2)  # first-use costs at B=4
+    _reset_counts()
+    # each timed twice, the faster kept: host time between calls varies
+    first, t_prefill = _sync_s(lambda: greedy_generate(model, params, prompts, max_new_tokens=1))
+    toks, t_full = _sync_s(lambda: greedy_generate(model, params, prompts, max_new_tokens=32))
+    t_prefill = min(t_prefill, _sync_s(lambda: greedy_generate(model, params, prompts, max_new_tokens=1))[1])
+    t_full = min(t_full, _sync_s(lambda: greedy_generate(model, params, prompts, max_new_tokens=32))[1])
+    gen_counts = _counts()
+    steps = 2 * (128 + (128 + 31))
+    if gen_counts["rmsnorm"] != steps * (2 * cfg.n_layers + 1) or gen_counts["flash_attention"]:
+        fail(f"serve: greedy_generate launched {gen_counts} over {steps} decode steps")
+    if tuple(toks.shape) != (4, 32) or not torch.equal(toks[:, :1], first):
+        fail("serve: greedy_generate's tokens have the wrong shape or first token")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        fail("serve: greedy_generate produced a token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+
+    # decode alone: 31 greedy steps of 4 after the 128-token prompt, as in
+    # greedy_generate's decode phase, timed without the prefill
+    caches = init_caches(model, 4, 160)
+    for t in range(128):
+        logits_t, caches = model.decode_step(params, caches, prompts[:, t], t)
+
+    def decode_31():
+        tok = logits_t.argmax(-1)
+        for t in range(128, 159):
+            lg, _ = model.decode_step(params, caches, tok, t)
+            tok = lg.argmax(-1)
+
+    t_dec = min(_sync_s(decode_31)[1], _sync_s(decode_31)[1])
+    decode_tps = 4 * 31 / t_dec
+    log(f"serve: greedy_generate 4 x 128 prompt tokens: prefill (token by token) {t_prefill:.3f} s; "
+        f"with 32 new tokens {t_full:.3f} s; launches {gen_counts}")
+    log(f"serve: decode alone, 31 steps of 4 after the prompt: {t_dec:.3f} s, {decode_tps:.1f} "
+        f"tokens/s ({t_dec / 31 * 1e3:.2f} ms a step)")
+    log(f"serve: device memory high-water mark of serving (weights, forward_step, "
+        f"greedy_generate) {peak / 2**30:.2f} GiB ({peak} bytes)")
+
+    # where the time goes: one profiled forward_step, and 8 profiled decode steps at B=4
+    _log_profile("profiled forward_step", _device_profile(lambda: model.forward_step(params, batch)))
+
+    def eight_steps():
+        tok = logits_t.argmax(-1)
+        for t in range(128, 136):
+            lg, _ = model.decode_step(params, caches, tok, t)
+            tok = lg.argmax(-1)
+
+    _log_profile("8 profiled decode steps (B=4, cache of 160)", _device_profile(eight_steps))
+    del caches
+
+    # the plain path, free running, with every kernel also run on its inputs
+    with _recording() as rec_p, _kernels_on_plain_inputs() as held:
+        logits_plain, t_plain = _sync_s(lambda: plain.forward_step(params, batch))
+    with _recording() as rec_a:
+        model.forward_step(params, batch)
+    # the control: the plain path summed in another order (attention blocks of 256, not 512)
+    _reset_counts()
+    with _plain_blocks(256), _recording() as rec_c:
+        logits_ctrl = plain.forward_step(params, batch)
+    if any(_counts().values()):
+        fail(f"serve: the plain path launched a kernel: {_counts()}")
+    diff, ratio, agree = _compare(logits, logits_plain, LOGIT_TOL)
+    c_diff, c_ratio, c_agree = _compare(logits_ctrl, logits_plain, LOGIT_TOL)
+    div_a = _layer_divergence(rec_a.xs, rec_p.xs)
+    div_c = _layer_divergence(rec_c.xs, rec_p.xs)
+    del logits_ctrl, rec_a, rec_p, rec_c
+    log(f"serve: plain forward {t_plain:.3f} s (with the kernels run beside it); every layer's "
+        f"flash attention and RMSNorm inputs through the kernels: worst distance "
+        f"{held.worst['flash_attention']:.3f} and {held.worst['rmsnorm']:.3f} tolerances over "
+        f"{held.calls['flash_attention']} and {held.calls['rmsnorm']} calls")
+    log(f"serve: logits, kernels against plain, free running: max abs diff {diff:.4e} "
+        f"({ratio:.2f} x tol {LOGIT_TOL}), argmax equal at {agree} of {2 * 4096}; control "
+        f"(the plain path with attention blocks of 256 against 512): {c_diff:.4e} "
+        f"({c_ratio:.2f} x tol), argmax equal at {c_agree}")
+    log("serve: residual-stream divergence, max |difference| / max |plain| after layers "
+        + ", ".join(f"{l}: {div_a[l]:.3e} (control {div_c[l]:.3e})"
+                    for l in sorted({1, 2, 4, 8, 16, 24, len(div_a) - 1} & set(range(len(div_a))))))
+    if held.calls["flash_attention"] != cfg.n_layers or held.calls["rmsnorm"] != 2 * cfg.n_layers + 1:
+        fail(f"serve: the plain path ran {held.calls} kernel inputs")
+    for name, worst in held.worst.items():
+        if worst > 1.0:
+            fail(f"serve: {name} on the main path's inputs is {worst:.3f} tolerances from plain")
+    if diff > CONTROL_FACTOR * c_diff or (2 * 4096 - agree) > CONTROL_FACTOR * (2 * 4096 - c_agree):
+        fail(f"serve: the kernels' logits part from the plain path by more than {CONTROL_FACTOR} x "
+             f"the plain path's own reordering does (max abs {diff:.4e} vs {c_diff:.4e}, "
+             f"argmax {agree} vs {c_agree})")
+
+    dec = _decode_against_forward(model, params, batch["tokens"], logits)
+    dec_plain = _decode_against_forward(plain, params, batch["tokens"], logits_plain)
+    log(f"serve: decode steps 0..63 against the forward's logits: max abs diff {dec:.4e} on the "
+        f"kernel path, {dec_plain:.4e} on the plain path")
+    if dec > CONTROL_FACTOR * dec_plain:
+        fail(f"serve: decode against forward parts by {dec:.4e} on the kernel path, more than "
+             f"{CONTROL_FACTOR} x the plain path's {dec_plain:.4e}")
+    del logits_plain
+    log(f"serve: device memory high-water mark with the checks' recordings "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {k: fwd_counts[k] + gen_counts[k] for k in fwd_counts}
+    return {"launches": launches, "t_forward": t_fwd2, "t_prefill": t_prefill,
+            "decode_tps": decode_tps, "peak_bytes": peak}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of the serving phase's weights and tokens")
+    args = ap.parse_args()
     card = phase_device()
     import torch
 
@@ -724,6 +1253,8 @@ def main() -> int:
     max_err, _ = phase_kernel()
     main = phase_main_path()
     phase_reuse()
+    llm = phase_llm_kernels(args.seed)
+    serve = phase_serve(args.seed)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",
@@ -738,6 +1269,25 @@ def main() -> int:
         "bound_by": shape["bound_by"],
         "library_ms": None,
     }]
+    for name, replaces in (("rmsnorm", "src/repro/kernels/rmsnorm.py:20"),
+                           ("flash_attention", "src/repro/kernels/flash_attention.py:112")):
+        k = llm[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": serve["launches"][name],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+        })
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"{k['name']}: never launched on its main path")
     log(f"build seconds: {build['seconds']:.2f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,10 @@
 
 Replaces ``src/repro/kernels/relational.py::_elementwise_pallas``, the
 Pallas kernel the JAX plane's filter and projection programs run through.
-The CUDA source is ``src/repro_torch/csrc/relational.cu``; it is built with
-``nvcc`` at first use into ``build/repro_torch/`` at the repository root and
-bound with ``ctypes`` (a plain C interface, so the build takes seconds).
+The CUDA source is ``src/repro_torch/csrc/relational.cu``; ``kernels/_build.py``
+builds it with ``nvcc`` (and ``-fmad=false``) at first use into
+``build/repro_torch/`` at the repository root, and it is bound with
+``ctypes`` (a plain C interface, so the build takes seconds).
 
 A ``RelProgram`` is what the kernel interprets:
 
@@ -32,18 +33,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import _build
 
 MAX_DEPTH = 64  # the kernel's bool stack is one 64-bit register
 
@@ -52,12 +48,8 @@ LE, LT, EQ, NE, VALUE = range(5)
 # postfix opcodes
 ATOM, HOST, TRUE, FALSE, NOT, AND, OR = range(7)
 
-_SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "relational.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+# every multiply and add rounded on its own: no FMA contraction
+SOURCE = _build.CudaSource("relational", ("-fmad=false",))
 
 
 @dataclass(frozen=True)
@@ -254,9 +246,7 @@ def _launch(
         plan = words.to(dev, non_blocking=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.veer_relational_launch(plan.data_ptr(), plan.numel(), n, stream)
-    if rc != 0:
-        msg = lib.veer_cuda_error_string(rc).decode()
-        raise RuntimeError(f"relational kernel launch failed: {msg} ({rc})")
+    _build.check(lib, rc, "relational kernel")
     relational.launches += 1
     return result
 
@@ -266,63 +256,15 @@ def _launch(
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = pathlib.Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build() -> Dict[str, object]:
-    """Compile ``csrc/relational.cu`` unless this source and these flags were
-    built before; returns ``{"path", "seconds", "log", "cached"}``.  The
-    build is written to a temporary file and renamed into place, so racing
-    processes never load half a library."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"librelational_{key}.so"
-    if lib_path.exists():
-        return {"path": str(lib_path), "seconds": 0.0, "log": "", "cached": True}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {_SOURCE.name}:\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return {
-        "path": str(lib_path),
-        "seconds": time.perf_counter() - t0,
-        "log": proc.stdout + proc.stderr,
-        "cached": False,
-    }
-
-
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+    lib = _build.load(SOURCE)
     lib.veer_relational_header_words.argtypes = []
     lib.veer_relational_header_words.restype = ctypes.c_int
     lib.veer_relational_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.veer_relational_launch.restype = ctypes.c_int
-    lib.veer_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.veer_cuda_error_string.restype = ctypes.c_char_p
     if lib.veer_relational_header_words() != len(_HEADER):
         raise RuntimeError(
             "csrc/relational.cu plan header does not match kernels/relational.py"

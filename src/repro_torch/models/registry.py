@@ -1,0 +1,100 @@
+"""Model facade for the dense LM family (the port of ``models/registry.py``).
+
+  model.init(seed, device="cuda")             real params on the device
+  model.forward(params, tokens)               logits (B, S, V), bf16
+  model.forward_step(params, batch)           serve-side prefill compute
+  model.decode_step(params, caches, token, pos)
+
+``attn_impl`` ("auto" | "cuda" | "reference", ``kernels/ops.py``) selects
+the flash attention and the RMSNorm implementation.  It defaults to
+"auto": the hand-written kernels on CUDA tensors.  The reference defaults
+to its plain path; "reference" names the port's plain path.  Loss and
+training, ``remat`` and the sharding specs come with later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Union
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ops import IMPLS
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import init_tree, tree_leaves
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA raises
+    instead of carrying on on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but CUDA is not available; pass device='cpu' to run on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+@dataclass
+class Model:
+    cfg: ArchConfig
+    attn_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: family {self.cfg.family!r} comes with a later slice "
+                "(ROADMAP queue 1); this slice serves the dense family")
+        if self.attn_impl not in IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}; one of {IMPLS}")
+
+    # -- params ---------------------------------------------------------------
+    def param_defs(self):
+        return T.lm_param_defs(self.cfg)
+
+    def init(self, seed: Union[int, torch.Generator] = 0, *, device="cuda"):
+        """Parameters drawn from ``seed`` (or a ``torch.Generator`` on
+        ``device``) on ``device``, fp32."""
+        dev = resolve_device(device)
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+        return init_tree(self.param_defs(), gen, dev)
+
+    # -- steps ----------------------------------------------------------------
+    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return T.lm_forward(params, tokens, self.cfg, attn_impl=self.attn_impl)
+
+    def forward_step(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Inference prefill: batch → logits (serve-side prefill compute)."""
+        return T.lm_forward(params, batch["tokens"][:, :-1], self.cfg, attn_impl=self.attn_impl)
+
+    def decode_step(self, params, caches, token, pos):
+        return T.lm_decode_step(params, caches, token, pos, self.cfg, impl=self.attn_impl)
+
+    def serve_step_fn(self) -> Callable:
+        def serve_step(params, caches, token, pos):
+            return self.decode_step(params, caches, token, pos)
+
+        return serve_step
+
+    def n_params(self) -> int:
+        total = 0
+        for _, pd in tree_leaves(self.param_defs()):
+            n = 1
+            for s in pd.shape:
+                n *= s
+            total += n
+        return total
+
+    def n_active_params(self) -> int:
+        """Active per token: every parameter, for the dense family."""
+        return self.n_params()
+
+
+def build_model(cfg: ArchConfig, **kw) -> Model:
+    return Model(cfg, **kw)

@@ -1,0 +1,211 @@
+"""Decoder-only LM assembled from the per-layer pattern (the port of
+``models/transformer.py``, dense family).
+
+The parameter tree keeps the reference's keys: ``embed``, ``final_ln``,
+``lm_head`` (untied archs), the stacked ``scan`` whose leaves carry a leading
+``n_periods`` axis, and ``tail{i}`` for the layers after the last whole
+period.  The reference's ``lax.scan`` over periods is a Python loop over
+that axis here.  Mamba and MoE layers come with later slices and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models.layers import PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, tree_map
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Layer definitions from the pattern
+# ---------------------------------------------------------------------------
+
+
+def _layer_defs(cfg: ArchConfig, layer_idx: int) -> Dict[str, Any]:
+    kind = cfg.pattern[layer_idx]
+    if kind == "mamba":
+        raise NotImplementedError(
+            f"{cfg.name}: mamba layers come with the mamba2-2.7b serving slice "
+            "(ROADMAP queue 1: models/ssm.py and queue-2 kernel 4)")
+    if cfg.moe is not None and cfg.moe_layer_mask()[layer_idx]:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers come with the MoE and hybrid slice (ROADMAP queue 1: models/moe.py)")
+    defs: Dict[str, Any] = {"mixer": A.attn_defs(cfg)}
+    if cfg.d_ff > 0:
+        defs["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff)
+    return defs
+
+
+def _segments(cfg: ArchConfig) -> Tuple[int, int, int]:
+    p = max(1, cfg.scan_period)
+    n_periods = cfg.n_layers // p
+    rem = cfg.n_layers - n_periods * p
+    # pattern must actually be periodic over the scanned prefix
+    for i in range(n_periods * p):
+        if cfg.pattern[i] != cfg.pattern[i % p]:
+            raise ValueError(f"{cfg.name}: layer {i} breaks the pattern period {p}")
+    return p, n_periods, rem
+
+
+def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    p, n_periods, rem = _segments(cfg)
+    d, V = cfg.d_model, cfg.vocab
+    tp = "tp" if V % 16 == 0 else None
+    defs: Dict[str, Any] = {
+        "embed": PD((V, d), (tp, None), scale=1.0 / (d ** 0.5)),
+        "final_ln": PD((d,), (None,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = PD((d, V), (None, tp))
+    if n_periods > 0:
+        period_defs = {f"l{j}": _layer_defs(cfg, j) for j in range(p)}
+        defs["scan"] = stack_defs(period_defs, n_periods)
+    for i in range(rem):
+        defs[f"tail{i}"] = _layer_defs(cfg, n_periods * p + i)
+    return defs
+
+
+def _layers(params: Dict[str, Any], cfg: ArchConfig):
+    """``(kind, layer params, cache key path)`` for every layer in order:
+    the periods of the stacked ``scan``, then the tail."""
+    p, n_periods, rem = _segments(cfg)
+    for period in range(n_periods):
+        for j in range(p):
+            lp = tree_map(lambda t: t[period], params["scan"][f"l{j}"])
+            yield cfg.pattern[j], lp, ("scan", period, f"l{j}")
+    for i in range(rem):
+        yield cfg.pattern[n_periods * p + i], params[f"tail{i}"], (f"tail{i}",)
+
+
+def _head(params: Dict[str, Any], cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _block_fwd(lp, x, cfg: ArchConfig, kind: str, positions, attn_impl: str) -> torch.Tensor:
+    x = A.attn_block(lp["mixer"], x, cfg, kind, positions=positions, attn_impl=attn_impl)
+    if "ffn" in lp:
+        x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
+    return x
+
+
+@torch.no_grad()
+def lm_forward(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,  # (B, S) integer
+    cfg: ArchConfig,
+    *,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Logits (B, S, V) in bf16."""
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for kind, lp, _ in _layers(params, cfg):
+        x = _block_fwd(lp, x, cfg, kind, positions, attn_impl)
+    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
+    return dense(x, _head(params, cfg))
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step): one token against stacked KV caches
+# ---------------------------------------------------------------------------
+
+
+def lm_cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
+    """``(shape, dtype)`` of every cache, in the parameter tree's layout."""
+    p, n_periods, rem = _segments(cfg)
+
+    def layer_cache(kind):
+        if kind == "mamba":
+            raise NotImplementedError(f"{cfg.name}: mamba caches come with the mamba2-2.7b slice")
+        return A.attn_cache_shape(cfg, batch, seq)
+
+    out: Dict[str, Any] = {}
+    if n_periods > 0:
+        out["scan"] = {
+            f"l{j}": {name: ((n_periods,) + shape, dtype)
+                      for name, (shape, dtype) in layer_cache(cfg.pattern[j]).items()}
+            for j in range(p)
+        }
+    for i in range(rem):
+        out[f"tail{i}"] = layer_cache(cfg.pattern[n_periods * p + i])
+    return out
+
+
+def _block_decode(lp, cache, x, pos, cfg: ArchConfig, kind: str, impl: str):
+    x, cache = A.attn_decode_block(lp["mixer"], x, cache, pos, cfg, kind, impl=impl)
+    if "ffn" in lp:
+        x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=impl)
+    return x, cache
+
+
+@torch.no_grad()
+def lm_decode_step(
+    params: Dict[str, Any],
+    caches: Dict[str, Any],
+    token: torch.Tensor,  # (B,) integer
+    pos,                  # int or 0-d integer tensor
+    cfg: ArchConfig,
+    *,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step: returns (logits (B, V) in fp32, caches).  The caches
+    are updated in place and returned."""
+    x = params["embed"][token][:, None, :].to(COMPUTE_DTYPE)
+    if not isinstance(pos, torch.Tensor):
+        # a fill on the device: no blocking host-to-device copy, so the host
+        # queues the next steps while the device runs this one
+        pos = torch.full((), int(pos), dtype=torch.int64, device=x.device)
+    for kind, lp, path in _layers(params, cfg):
+        if path[0] == "scan":
+            cache = {name: c[path[1]] for name, c in caches["scan"][path[2]].items()}
+        else:
+            cache = caches[path[0]]
+        x, _ = _block_decode(lp, cache, x, pos, cfg, kind, impl)
+    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=impl)
+    logits = dense(x, _head(params, cfg))[:, 0]
+    return logits.to(torch.float32), caches
+
+
+# ---------------------------------------------------------------------------
+# Prefill that also fills the caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache_tree(cfg: ArchConfig, batch: int, cache_len: int, device) -> Dict[str, Any]:
+    """Zero caches of ``lm_cache_shapes`` on ``device``."""
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        shape, dtype = node
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return zeros(lm_cache_shapes(cfg, batch, cache_len))
+
+
+@torch.no_grad()
+def lm_prefill(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,  # (B, S)
+    cache_len: int,
+    cfg: ArchConfig,
+    *,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Sequential decode-based prefill (simple + exact): the last position's
+    logits and the filled caches."""
+    B, S = tokens.shape
+    caches = init_cache_tree(cfg, B, cache_len, tokens.device)
+    logits = torch.zeros((B, cfg.vocab), dtype=torch.float32, device=tokens.device)
+    for t in range(S):
+        logits, caches = lm_decode_step(params, caches, tokens[:, t], t, cfg, impl=impl)
+    return logits, caches

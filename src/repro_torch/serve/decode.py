@@ -1,0 +1,41 @@
+"""Batched serving: prefill + greedy decode against the KV caches (the port
+of ``serve/decode.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.registry import Model
+
+
+def init_caches(model: Model, batch: int, cache_len: int, device="cuda"):
+    """Zero KV caches for ``batch`` sequences of up to ``cache_len`` tokens."""
+    return T.init_cache_tree(model.cfg, batch, cache_len, device)
+
+
+@torch.no_grad()
+def greedy_generate(
+    model: Model,
+    params,
+    prompt: torch.Tensor,  # (B, S0) integer, on the params' device
+    *,
+    max_new_tokens: int,
+    cache_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Prefill the prompt token by token, then decode greedily: returns the
+    (B, max_new_tokens) new tokens.  Everything stays on the prompt's
+    device; nothing waits for the host between steps."""
+    B, S0 = prompt.shape
+    cache_len = cache_len or (S0 + max_new_tokens)
+    caches = init_caches(model, B, cache_len, prompt.device)
+    logits = None
+    for t in range(S0):
+        logits, caches = model.decode_step(params, caches, prompt[:, t], t)
+    out = [torch.argmax(logits, dim=-1)]
+    for i in range(max_new_tokens - 1):
+        logits, caches = model.decode_step(params, caches, out[-1], S0 + i)
+        out.append(torch.argmax(logits, dim=-1))
+    return torch.stack(out, dim=1)

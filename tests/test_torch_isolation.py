@@ -35,6 +35,10 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys, repro_torch, repro_torch.carry, repro_torch.core.serialize\n"
         "import repro_torch.engine.plane.torch_plane, repro_torch.kernels.relational\n"
+        "import repro_torch.configs, repro_torch.models.registry, repro_torch.serve.decode\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm\n"
+        "import repro_torch.kernels.ops\n"
+        "repro_torch.configs.get_arch('llama3-8b')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "print(','.join(bad))\n"

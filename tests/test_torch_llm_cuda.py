@@ -1,0 +1,129 @@
+"""The LLM kernels and the dense model: no quiet fallback to the host, and
+each kernel against its plain version on the card.
+
+This file imports neither JAX nor the reference package, so its ``cuda``
+tests run on a GPU machine without them:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_llm_cuda.py
+
+Tolerances on the card: flash attention fp32 2e-6 and bf16 2e-2
+(``tests/test_kernels.py``); RMSNorm fp32 1e-6, bf16 one bf16 unit in the
+last place.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models import build_model
+from repro_torch.serve import greedy_generate
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _qkv(device, dtype=torch.float32, B=1, S=64, T=64, H=4, KV=2, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 0.5).to(device, dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+def test_impl_cuda_on_cpu_tensors_raises():
+    q, k, v = _qkv("cpu")
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.flash_attention(q, k, v, impl="cuda")
+    x, w = torch.ones(3, 8), torch.ones(8)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.rmsnorm(x, w, impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.rmsnorm(x, w, impl="pallas")
+
+
+def test_wrappers_refuse_mixed_or_unsupported_devices():
+    q, k, v = _qkv("cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, v.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm(torch.ones(2, 8, device="meta"), torch.ones(8, device="meta"))
+
+
+def test_bare_model_init_raises_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    model = build_model(get_arch("llama3-8b").with_reduced())
+    assert model.attn_impl == "auto"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0, device="cuda:0")
+    params = model.init(0, device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+def test_model_on_cpu_stays_on_cpu_and_launches_nothing():
+    model = build_model(get_arch("glm4-9b").with_reduced())
+    params = model.init(1, device="cpu")
+    before = (flash_attention.launches, rmsnorm.launches)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(2, 256, (2, 9)))
+    logits = model.forward_step(params, {"tokens": tokens})
+    assert logits.shape == (2, 8, 256) and logits.dtype == torch.bfloat16
+    assert torch.isfinite(logits.float()).all()
+    new = greedy_generate(model, params, tokens[:, :4], max_new_tokens=3)
+    assert new.shape == (2, 3) and new.device.type == "cpu"
+    assert (flash_attention.launches, rmsnorm.launches) == before
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    dict(S=128, T=128, H=4, KV=4, D=32),
+    dict(S=192, T=192, H=4, KV=1, D=64, causal=True),
+    dict(S=100, T=300, H=8, KV=2, D=128, q_offset=200),
+    dict(S=256, T=256, H=4, KV=2, D=16, window=96),
+    dict(S=256, T=256, H=4, KV=2, D=32, chunk=64),
+    dict(S=129, T=77, H=2, KV=2, D=64, causal=False),
+])
+def test_flash_kernel_matches_plain_version(case, dtype, tol):
+    _cuda()
+    case = dict(case)
+    shape = {n: case.pop(n) for n in ("S", "T", "H", "KV", "D")}
+    q, k, v = _qkv("cuda", dtype, B=2, seed=shape["S"], **shape)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **case)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_reference(q, k, v, **case)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (17, 4096), (4, 1, 5376), (2, 12288), (5, 4097)])
+def test_rmsnorm_kernel_matches_plain_version(shape, dtype):
+    _cuda()
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+    w = torch.from_numpy(rng.standard_normal(shape[-1:], dtype=np.float32)).cuda()
+    before = rmsnorm.launches
+    got = rmsnorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    want = ref.rmsnorm_reference(x, w, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    else:
+        w_ = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w_.abs().clamp_min(1e-30))) - 7)
+        assert ((got.float() - w_).abs() <= ulp).all()

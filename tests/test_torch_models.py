@@ -1,0 +1,186 @@
+"""The port's dense LM on the CPU against the reference's.
+
+For the reduced llama3-8b, gemma3-27b, glm4-9b and command-r-plus-104b, the
+reference's ``Model.init`` parameters are carried to the port with
+``params_from_reference``; then the port's forward logits (plain path on the
+host) are held to the reference's ``attn_impl="reference"`` forward, and its
+decode-step logits to the reference's over 16 positions.  Both compute in
+bf16: atol = rtol = 2e-2.  Parameter counts of the full-size configs must
+equal the reference's.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as ref_arch
+from repro.models import build_model as ref_build
+from repro.models import transformer as RT
+from repro_torch.carry import params_from_reference
+from repro_torch.configs import get_arch
+from repro_torch.configs.registry import ARCHS
+from repro_torch.models import build_model
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import tree_leaves
+
+DENSE = ["llama3-8b", "gemma3-27b", "glm4-9b", "command-r-plus-104b"]
+TOL = 2e-2  # bf16 activations and logits in both
+
+
+def _pair(arch, seed=0):
+    """(reference model, reference params, port model, port params)."""
+    rm = ref_build(ref_arch(arch).with_reduced())
+    rp = rm.init(jax.random.PRNGKey(seed))
+    pm = build_model(get_arch(arch).with_reduced())
+    pp = params_from_reference(jax.tree_util.tree_map(np.asarray, rp), device="cpu")
+    return rm, rp, pm, pp
+
+
+def _tokens(vocab, shape, seed):
+    return np.random.default_rng(seed).integers(2, vocab, shape).astype(np.int32)
+
+
+def _close(got, want, what):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL, err_msg=what)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_params_carry_leaf_for_leaf(arch):
+    rm, rp, pm, pp = _pair(arch)
+    ref_leaves = {"/".join(str(k.key) for k in path): leaf
+                  for path, leaf in jax.tree_util.tree_flatten_with_path(rp)[0]}
+    own = dict(tree_leaves(pm.init(0, device="cpu")))
+    carried = dict(tree_leaves(pp))
+    assert set(ref_leaves) == set(own) == set(carried)
+    for key, leaf in ref_leaves.items():
+        assert tuple(carried[key].shape) == tuple(leaf.shape) == tuple(own[key].shape), key
+        assert carried[key].dtype == own[key].dtype == torch.float32, key
+        np.testing.assert_array_equal(carried[key].numpy(), np.asarray(leaf))
+    assert "scan" in pp and all(t.shape[0] == RT._segments(rm.cfg)[1]
+                                for _, t in tree_leaves(pp["scan"]))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_reference(arch):
+    rm, rp, pm, pp = _pair(arch)
+    toks = _tokens(rm.cfg.vocab, (2, 33), seed=1)
+    want = rm.forward_step(rp, {"tokens": jnp.asarray(toks)})
+    got = pm.forward_step(pp, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == tuple(want.shape)
+    _close(got.float().numpy(), want, f"{arch} forward logits")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_step_matches_reference(arch):
+    rm, rp, pm, pp = _pair(arch, seed=1)
+    B, S = 2, 16
+    toks = _tokens(rm.cfg.vocab, (B, S), seed=2)
+    rcaches = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                     RT.lm_cache_shapes(rm.cfg, B, S))
+    caches = T.init_cache_tree(pm.cfg, B, S, "cpu")
+    step = jax.jit(lambda p, c, t, pos: rm.decode_step(p, c, t, pos))
+    full = pm.forward(pp, torch.from_numpy(toks)).float().numpy()
+    for t in range(S):
+        want, rcaches = step(rp, rcaches, jnp.asarray(toks[:, t]), jnp.asarray(t))
+        got, caches = pm.decode_step(pp, caches, torch.from_numpy(toks[:, t]), t)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (B, rm.cfg.vocab)
+        _close(got.numpy(), want, f"{arch} decode logits at {t}")
+        # and the port's own decode against its forward, as the reference's smoke test does
+        np.testing.assert_allclose(got.numpy(), full[:, t], atol=0.15, rtol=0.15)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(rcaches)[0]:
+        node = caches
+        for k in path:
+            node = node[k.key]
+        _close(node.float().numpy(), leaf, f"{arch} cache {path}")
+
+
+@pytest.mark.parametrize("pos", [16, 40, -3, -20])
+def test_decode_clamps_an_out_of_range_pos_as_the_reference_does(pos):
+    """``jax.lax.dynamic_update_slice`` counts a negative start index from
+    the end and clamps it so the update fits: a ``pos`` past the cache
+    writes its last slot, -3 the slot 3 from the end, -20 the first.  The
+    port writes the same slot instead of raising."""
+    rm, rp, pm, pp = _pair("llama3-8b", seed=3)
+    B, L = 2, 16
+    rng = np.random.default_rng(4)
+    ref_caches = {"scan": {"l0": {n: rng.standard_normal((2, B, L, 2, 16)).astype(np.float32)
+                                  for n in ("k", "v")}}}
+    rcaches = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), ref_caches)
+    # bf16 leaves carry over bit for bit
+    caches = params_from_reference(jax.tree_util.tree_map(np.asarray, rcaches), device="cpu")
+    assert caches["scan"]["l0"]["k"].dtype == torch.bfloat16
+    assert np.array_equal(caches["scan"]["l0"]["k"].float().numpy(),
+                          np.asarray(rcaches["scan"]["l0"]["k"], np.float32))
+    tok = _tokens(rm.cfg.vocab, (B,), seed=5)
+    want, rnew = rm.decode_step(rp, rcaches, jnp.asarray(tok), jnp.asarray(pos))
+    got, new = pm.decode_step(pp, caches, torch.from_numpy(tok), pos)
+    _close(got.numpy(), want, "logits at a clamped pos")
+    slot = min(max(pos + L if pos < 0 else pos, 0), L - 1)
+    for n in ("k", "v"):
+        r = np.asarray(rnew["scan"]["l0"][n], np.float32)
+        g = new["scan"]["l0"][n].float().numpy()
+        old = np.asarray(rcaches["scan"]["l0"][n], np.float32)
+        changed = np.nonzero((r != old).any(axis=(0, 1, 3, 4)))[0]
+        assert list(changed) == [slot]  # the reference wrote only the clamped slot
+        _close(g, r, f"cache {n} after a write at pos {pos}")
+        assert np.array_equal(np.delete(g, slot, axis=2), np.delete(old, slot, axis=2))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b"])
+def test_prefill_matches_reference(arch):
+    """``lm_prefill`` (decode-based, fills the caches) against the
+    reference's: the last position's logits and the caches."""
+    rm, rp, pm, pp = _pair(arch, seed=6)
+    toks = _tokens(rm.cfg.vocab, (2, 12), seed=7)
+    want, rcaches = RT.lm_prefill(rp, jnp.asarray(toks), 16, rm.cfg)
+    got, caches = T.lm_prefill(pp, torch.from_numpy(toks), 16, pm.cfg)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, rm.cfg.vocab)
+    _close(got.numpy(), want, f"{arch} prefill logits")
+    for path, leaf in jax.tree_util.tree_flatten_with_path(rcaches)[0]:
+        node = caches
+        for k in path:
+            node = node[k.key]
+        _close(node.float().numpy(), leaf, f"{arch} prefill cache {path}")
+
+
+def test_n_params_equal_the_reference_at_full_size():
+    for arch in DENSE:
+        assert build_model(get_arch(arch)).n_params() == ref_build(ref_arch(arch)).n_params(), arch
+        assert build_model(get_arch(arch)).n_active_params() == ref_build(ref_arch(arch)).n_active_params()
+    assert 8.0e9 <= build_model(get_arch("llama3-8b")).n_params() <= 8.5e9
+    assert 25e9 <= build_model(get_arch("gemma3-27b")).n_params() <= 30e9
+    assert 95e9 <= build_model(get_arch("command-r-plus-104b")).n_params() <= 112e9
+
+
+def test_silu_is_the_references_bit_for_bit_in_bf16():
+    """The port computes ``jax.nn.silu`` op by op, so in the model's bf16
+    its rounding is the reference's exactly (a fused ``F.silu`` rounds
+    once, and differs in the last bit)."""
+    from repro_torch.models.layers import silu
+
+    x = np.random.default_rng(9).standard_normal((64, 256)).astype(np.float32) * 3
+    want = np.asarray(jax.nn.silu(jnp.asarray(x, jnp.bfloat16)), np.float32)
+    got = silu(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_configs_are_the_reference_configs():
+    from repro.configs.registry import ARCHS as REF_ARCHS
+
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
+    for name, cfg in ARCHS.items():
+        ref = REF_ARCHS[name]
+        for field in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_head", "d_ff",
+                      "vocab", "pattern", "window", "chunk", "rope_theta", "rms_eps",
+                      "tie_embeddings", "scan_period", "sub_quadratic"):
+            assert getattr(cfg, field) == getattr(ref, field), (name, field)
+            assert getattr(cfg.with_reduced(), field) == getattr(ref.with_reduced(), field), (name, field)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
+def test_families_of_later_slices_raise(arch):
+    with pytest.raises(NotImplementedError, match="slice"):
+        build_model(get_arch(arch).with_reduced())
