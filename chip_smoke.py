@@ -9,9 +9,9 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles the three kernels of ``src/repro_torch/csrc/``
-                 (relational, rmsnorm, flash_attention), one nvcc each, all
-                 started together.
+  2. build       compiles the four kernels of ``src/repro_torch/csrc/``
+                 (relational, rmsnorm, flash_attention, ssd_scan), one nvcc
+                 each, all started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -33,17 +33,23 @@ Phases (any failure exits non-zero and prints no result):
   5. reuse       version 1 materialized on the torch plane, version 2 (an
                  edit below the join) served from the store: operators
                  reused, sinks and sink digests equal to a full numpy run.
-  6. llm-kernels flash attention and RMSNorm against their plain PyTorch
-                 versions on the card: flash attention at the prefill shape
-                 (B=2, S=T=4096, H=32, KV=8, D=128, bf16, causal), at
-                 window=1024, chunk=1024, q_offset>0 with S<T, causal=False,
-                 a tail S=4095, and fp32 at a small shape; RMSNorm at
-                 (8192, 4096) bf16, decode rows (4, 1, 4096), fp32, D=5376,
-                 D=12288 and D=4097.  Tolerances: attention fp32 2e-6, bf16
-                 2e-2 (atol = rtol); RMSNorm fp32 1e-6, bf16 one bf16 unit in
-                 the last place.  Each kernel is timed at the prefill shape
-                 beside its plain version, one PyTorch library call and its
-                 bound.
+  6. llm-kernels flash attention, RMSNorm and the SSD scan against their
+                 plain PyTorch versions on the card: flash attention at the
+                 prefill shape (B=2, S=T=4096, H=32, KV=8, D=128, bf16,
+                 causal), at window=1024, chunk=1024, q_offset>0 with S<T,
+                 causal=False, a tail S=4095, and fp32 at a small shape;
+                 RMSNorm at (8192, 4096) bf16, decode rows (4, 1, 4096),
+                 fp32, D=5376, D=12288, D=4097 and mamba2's D=2560 and 5120;
+                 the SSD scan at mamba2's prefill shape (B=2, L=4096, H=80,
+                 P=64, G=1, N=128, chunk 256, bf16), a single chunk, G=2, a
+                 nonzero initial state, B=1, and fp32 at the three shapes of
+                 ``tests/test_kernels.py``.  Tolerances: attention fp32 2e-6,
+                 bf16 2e-2 (atol = rtol); RMSNorm fp32 1e-6, bf16 one bf16
+                 unit in the last place; SSD fp32 1e-5, bf16 y 2e-2, final
+                 state 1e-5 (1e-4 at chunks of 256, ``_ssd_tols``).  Each
+                 kernel is timed at the prefill shape beside its plain
+                 version, one PyTorch library call where there is one, and
+                 its bound.
   7. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
                  weights drawn from --seed on the card: ``forward_step`` on
                  2 prompts of 4096 tokens through the kernels (32 flash
@@ -56,7 +62,17 @@ Phases (any failure exits non-zero and prints no result):
                  against the kernel path's beside a control (the plain path
                  summed in another order), and 64 decode steps against the
                  forward's logits on both paths (see LOGIT_TOL).
-  8. report      one JSON line of kernels, then the result line.
+  8. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
+                 heads of 64, state 128, vocab 50280), fp32 weights from
+                 --seed, after llama3-8b's tensors are freed: the same
+                 steps as phase 7 (64 SSD and 129 RMSNorm launches per
+                 ``forward_step``), the SSD kernel also held to its plain
+                 version on every layer's inputs, and the control the plain
+                 path with SSD chunks of 128 instead of 256 (the same
+                 function summed in another order).
+  9. report      one JSON line of kernels (launches summed over both
+                 serving paths), the card's name and power limit, then the
+                 result line.
 
 Options: ``--seed N`` (default 0) seeds the serving phase's weights and
 tokens.
@@ -120,27 +136,29 @@ def _kernel_modules():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import relational as R
     from repro_torch.kernels import rmsnorm as RMS
+    from repro_torch.kernels import ssd_scan as SS
 
-    return R, RMS, FA
+    return R, RMS, FA, SS
 
 
 def _reset_counts():
-    R, RMS, FA = _kernel_modules()
+    R, RMS, FA, SS = _kernel_modules()
     R.relational.launches = RMS.rmsnorm.launches = FA.flash_attention.launches = 0
+    SS.ssd_scan.launches = 0
 
 
 def _counts():
-    R, RMS, FA = _kernel_modules()
+    R, RMS, FA, SS = _kernel_modules()
     return {"relational": R.relational.launches, "rmsnorm": RMS.rmsnorm.launches,
-            "flash_attention": FA.flash_attention.launches}
+            "flash_attention": FA.flash_attention.launches, "ssd_scan": SS.ssd_scan.launches}
 
 
 def phase_build():
     from repro_torch.kernels import _build
 
-    R, RMS, FA = _kernel_modules()
+    R, RMS, FA, SS = _kernel_modules()
     t0 = time.perf_counter()
-    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE)
+    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, SS.SOURCE)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
@@ -148,7 +166,7 @@ def phase_build():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas: {line.strip()}")
     # load each and check the relational plan layout against the source
-    R._library(), RMS._library(), FA._library()
+    R._library(), RMS._library(), FA._library(), SS._library()
     log(f"build: all kernels in {wall:.2f} s of wall time")
     return {"seconds": wall}
 
@@ -776,7 +794,50 @@ RMS_CASES = (
     ("gemma3 D=5376", (4096, 5376), "bf16"),
     ("command-r D=12288", (2048, 12288), "bf16"),
     ("odd D=4097", (1000, 4097), "fp32"),
+    ("mamba2 d_model D=2560", (2, 4096, 2560), "bf16"),
+    ("mamba2 gated D=5120", (2, 4096, 5120), "bf16"),
 )
+# the SSD scan: mamba2-2.7b's prefill shape first (2 prompts of 4096 tokens,
+# 80 heads of 64, one group, state 128, chunks of 256)
+SSD_MAIN = dict(B=2, L=4096, H=80, P=64, G=1, N=128, chunk=256)
+# (name, shape, dtype, with an initial state)
+SSD_CASES = (
+    ("prefill", SSD_MAIN, "bf16", False),
+    ("single chunk L=256", dict(SSD_MAIN, L=256), "bf16", False),
+    ("G=2, H/G=4", dict(SSD_MAIN, L=1024, H=8, G=2), "bf16", False),
+    ("initial state", dict(SSD_MAIN, L=1024), "bf16", True),
+    ("B=1", dict(SSD_MAIN, B=1), "bf16", False),
+    ("fp32 test shape 1", dict(B=1, L=64, H=2, P=8, G=1, N=16, chunk=16), "fp32", False),
+    ("fp32 test shape 2", dict(B=2, L=128, H=4, P=16, G=2, N=32, chunk=32), "fp32", False),
+    ("fp32 test shape 3", dict(B=1, L=96, H=8, P=8, G=4, N=8, chunk=32), "fp32", False),
+)
+
+
+def _ssd_tols(dtype, chunk):
+    """(tolerance of y, of the fp32 final state), atol = rtol: fp32 1e-5
+    (``tests/test_kernels.py``), bf16 y 2e-2; the state 1e-5, or 1e-4 at
+    chunks of 256, whose cumulative sums of dt * A reach ~1e2 and differ
+    between the plain version's parallel ``torch.cumsum`` and the kernel's
+    in-order sum by a few units in their last place (~1e-5 of each decay)."""
+    import torch
+
+    return (1e-5 if dtype == torch.float32 else 2e-2), (1e-4 if chunk >= 256 else 1e-5)
+
+
+def _ssd_bound_ms(x, Bm, chunk, nbytes):
+    """The least time of one SSD call: ``nbytes`` over the memory rate, or
+    its products over the bf16 tensor-core rate (fp32 inputs: the CUDA
+    cores' fp32 rate).  Products counted once each: C.B^T per (batch, chunk,
+    group) on the causal half, and per (batch, head, chunk) the intra-chunk
+    product on the causal half, C.state and the state update."""
+    import torch
+
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc, pairs = L // chunk, chunk * (chunk + 1) // 2
+    flops = 2 * N * pairs * Bsz * nc * G + Bsz * H * nc * (2 * P * pairs + 4 * chunk * N * P)
+    rate = BF16_TENSOR_FLOP_PER_S if x.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return _bound_ms(nbytes, flops, rate) + (flops,)
 
 
 def _dtype(name):
@@ -824,7 +885,7 @@ def phase_llm_kernels(seed: int):
 
     from repro_torch.kernels import ref
 
-    _, RMS, FA = _kernel_modules()
+    _, RMS, FA, SS = _kernel_modules()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
@@ -887,7 +948,7 @@ def phase_llm_kernels(seed: int):
             fail(f"rmsnorm {name}: kernel differs from the plain version (max abs {err:.3e})")
         log(f"llm-kernels: rmsnorm {name} {dt} {shape}: max abs err {err:.3e} "
             f"({'1e-6' if dt == 'fp32' else 'one bf16 ulp'})")
-        if name == "prefill rows":
+        if name == "prefill rows" or name.startswith("mamba2"):
             D = shape[-1]
             nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
             bound, by = _bound_ms(nbytes, 4 * x.numel(), FP32_FLOP_PER_S)
@@ -901,16 +962,61 @@ def phase_llm_kernels(seed: int):
                 "bound_ms": bound, "bound_by": by,
             }
             fused_ms = _time_ms(lambda: F.rms_norm(x, (D,), w_x, 1e-5))
-            log(f"llm-kernels: rmsnorm at the prefill rows {shape}: kernel {timing['ms']:.4f} ms, "
+            log(f"llm-kernels: rmsnorm at {name} {shape}: kernel {timing['ms']:.4f} ms, "
                 f"plain {timing['plain_ms']:.4f} ms, F.rms_norm {timing['library_ms']:.4f} ms "
                 f"(fp32 weight; {fused_ms:.4f} ms with the weight in x's dtype), "
                 f"bound {bound:.4f} ms ({by}); kernel at {nbytes / timing['ms'] / 1e9:.1f} GB/s")
+            if name == "prefill rows":
+                rms_timing = timing
         del x, got, want
-    out["rmsnorm"] = dict(timing, max_abs_err=max_err)
+    out["rmsnorm"] = dict(rms_timing, max_abs_err=max_err)
+
+    max_err = 0.0
+    for name, shape, dt, with_init in SSD_CASES:
+        B, L, H, P, G, N, chunk = (shape[k] for k in ("B", "L", "H", "P", "G", "N", "chunk"))
+        dtype = _dtype(dt)
+        x = _randn(gen, (B, L, H, P), dtype, 0.5)
+        dts = F.softplus(_randn(gen, (B, L, H), torch.float32))
+        A = -torch.exp(_randn(gen, (H,), torch.float32, 0.3))
+        Bm = _randn(gen, (B, L, G, N), dtype, 0.3)
+        Cm = _randn(gen, (B, L, G, N), dtype, 0.3)
+        init = _randn(gen, (B, H, P, N), torch.float32) if with_init else None
+        y, st = SS.ssd_scan(x, dts, A, Bm, Cm, chunk=chunk, initial_state=init)
+        want_y, want_st = ref.ssd_reference(x, dts, A, Bm, Cm, chunk=chunk, initial_state=init)
+        torch.cuda.synchronize()
+        tol, st_tol = _ssd_tols(dtype, chunk)
+        err = float((y.float() - want_y.float()).abs().max())
+        st_err = float((st - want_st).abs().max())
+        max_err = max(max_err, err, st_err)
+        if not torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol):
+            fail(f"ssd_scan {name}: kernel y differs from the plain version (max abs {err:.3e}, "
+                 f"tolerance {tol})")
+        if not torch.allclose(st, want_st, atol=st_tol, rtol=st_tol):
+            fail(f"ssd_scan {name}: kernel final state differs from the plain version "
+                 f"(max abs {st_err:.3e}, tolerance {st_tol})")
+        ulp = (" " + ("within one bf16 ulp" if _bf16_ulp_ok(y, want_y) else "beyond one bf16 ulp somewhere")
+               if dt == "bf16" else "")
+        log(f"llm-kernels: ssd_scan {name} {dt} {shape} init={with_init}: max abs err y {err:.3e} "
+            f"(tol {tol}{ulp}), state {st_err:.3e} (tol {st_tol})")
+        if name == "prefill":
+            nbytes = sum(t.numel() * t.element_size() for t in (x, dts, A, Bm, Cm, y, st))
+            bound, by, flops = _ssd_bound_ms(x, Bm, chunk, nbytes)
+            ssd_timing = {
+                "ms": _time_ms(lambda: SS.ssd_scan(x, dts, A, Bm, Cm, chunk=chunk)),
+                "plain_ms": _time_ms(lambda: ref.ssd_reference(x, dts, A, Bm, Cm, chunk=chunk), reps=5),
+                "library_ms": None,  # no single PyTorch call computes the SSD scan
+                "bound_ms": bound, "bound_by": by,
+            }
+            log(f"llm-kernels: ssd_scan at the prefill shape: kernel {ssd_timing['ms']:.4f} ms, "
+                f"plain {ssd_timing['plain_ms']:.4f} ms, no library call, bound {bound:.4f} ms "
+                f"({by}; {nbytes} bytes, {flops:.4e} FLOPs at least); kernel at "
+                f"{flops / ssd_timing['ms'] / 1e9:.2f} TFLOP/s of the least work")
+        del x, dts, A, Bm, Cm, init, y, st, want_y, want_st
+    out["ssd_scan"] = dict(ssd_timing, max_abs_err=max_err)
     return out
 
 
-# -- 7. serve llama3-8b ------------------------------------------------------------
+# -- 7-8. serving, the pieces both serve phases use ---------------------------
 
 
 def _sync_s(fn):
@@ -987,22 +1093,23 @@ def _layer_divergence(xa, xp):
 
 
 class _kernels_on_plain_inputs:
-    """While the plain path runs, hand every flash attention and RMSNorm
-    input it computes to the kernel as well, and keep the worst distance
+    """While the plain path runs, hand every flash attention, RMSNorm and
+    SSD input it computes to the kernel as well, and keep the worst distance
     of the kernel's result from the plain one, in units of the kernel's
     tolerance (flash attention 2e-2 bf16 / 2e-6 fp32, atol = rtol; RMSNorm
-    one bf16 unit in the last place / 1e-6): the kernels held to their
-    plain versions on the main path's own tensors, layer by layer."""
+    one bf16 unit in the last place / 1e-6; SSD ``_ssd_tols``): the kernels
+    held to their plain versions on the main path's own tensors, layer by
+    layer."""
 
     def __enter__(self):
         import torch
 
         from repro_torch.kernels import ops
 
-        _, RMS, FA = _kernel_modules()
-        self.ops, self.fa, self.rms = ops, ops.flash_attention, ops.rmsnorm
-        self.worst = {"flash_attention": 0.0, "rmsnorm": 0.0}
-        self.calls = {"flash_attention": 0, "rmsnorm": 0}
+        _, RMS, FA, SS = _kernel_modules()
+        self.ops, self.fa, self.rms, self.ssd = ops, ops.flash_attention, ops.rmsnorm, ops.ssd
+        self.worst = {"flash_attention": 0.0, "rmsnorm": 0.0, "ssd_scan": 0.0}
+        self.calls = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
 
         def fa(q, k, v, **kw):
             out = self.fa(q, k, v, **kw)
@@ -1021,7 +1128,16 @@ class _kernels_on_plain_inputs:
             self._note("rmsnorm", float((d / unit).max()))
             return out
 
-        ops.flash_attention, ops.rmsnorm = fa, rms
+        def ssd(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, impl="auto"):
+            out, st = self.ssd(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state, impl=impl)
+            ky, kst = SS.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+            tol, st_tol = _ssd_tols(x.dtype, chunk)
+            ratio = max(float(((ky.float() - out.float()).abs() / (tol + tol * out.float().abs())).max()),
+                        float(((kst - st).abs() / (st_tol + st_tol * st.abs())).max()))
+            self._note("ssd_scan", ratio)
+            return out, st
+
+        ops.flash_attention, ops.rmsnorm, ops.ssd = fa, rms, ssd
         return self
 
     def _note(self, name, ratio):
@@ -1029,7 +1145,7 @@ class _kernels_on_plain_inputs:
         self.calls[name] += 1
 
     def __exit__(self, *exc):
-        self.ops.flash_attention, self.ops.rmsnorm = self.fa, self.rms
+        self.ops.flash_attention, self.ops.rmsnorm, self.ops.ssd = self.fa, self.rms, self.ssd
 
 
 def _decode_against_forward(model, params, tokens, logits, n: int = 64):
@@ -1045,9 +1161,10 @@ def _decode_against_forward(model, params, tokens, logits, n: int = 64):
     return worst
 
 
-# device-time kinds of the serving path, by kernel-name substring
+# device-time kinds of the serving paths, by kernel-name substring
 SERVE_KINDS = (
     ("flash_attention", ("flash_fwd_kernel",)),
+    ("ssd_scan", ("ssd_scan_kernel",)),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "wgmma", "sm90_")),
     ("copy_cast", ("copy", "memcpy", "memset")),
@@ -1087,31 +1204,47 @@ def _device_profile(run, kinds=SERVE_KINDS, top: int = 6):
             "by_kind": by_kind, "top": sorted(names, reverse=True)[:top]}
 
 
-def _log_profile(what, prof):
+def _log_profile(tag, what, prof):
     if prof is None:
-        log(f"serve: {what}: device time not measured (the profiler saw no device activity)")
+        log(f"{tag}: {what}: device time not measured (the profiler saw no device activity)")
         return
     kinds = ", ".join(f"{k} {v * 1e3:.2f}" for k, v in prof["by_kind"].items())
     top = "; ".join(f"{name[:60]} {sec * 1e3:.2f}" for sec, name in prof["top"])
-    log(f"serve: {what}: wall {prof['wall_s'] * 1e3:.2f} ms, device busy {prof['busy_s'] * 1e3:.2f} ms "
+    log(f"{tag}: {what}: wall {prof['wall_s'] * 1e3:.2f} ms, device busy {prof['busy_s'] * 1e3:.2f} ms "
         f"(idle share {prof['idle_share']:.4f}); device ms by kind: {kinds}; top kernels (ms): {top}")
 
 
-def phase_serve(seed: int):
+def _serve(tag, cfg, seed, mixer, control, control_what):
+    """Serve ``cfg`` at full width and depth with weights drawn from
+    ``seed``: ``forward_step`` on 2 prompts of 4096 tokens through the
+    kernels (``mixer``, the mixer's kernel, once a layer; RMSNorm on every
+    norm), ``greedy_generate`` and decode timings, profiles, then the gates:
+    the kernels on the plain path's inputs, the logits against the plain
+    path beside ``control()`` (a context and a plain model that compute the
+    same function summed in another order), and decode against forward.
+    Every tensor of the run is freed when it returns."""
+    import gc
+
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
     from repro_torch.serve import greedy_generate, init_caches
 
-    cfg = get_arch("llama3-8b")
-    model = build_model(cfg)  # attn_impl="auto": the kernels on the card
-    plain = build_model(cfg, attn_impl="reference")
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    log(f"{tag}: device memory in use at the start {torch.cuda.memory_allocated()} bytes")
+    model = build_model(cfg)  # attn_impl="auto": the kernels on the card
+    plain = build_model(cfg, attn_impl="reference")
+    # RMSNorms: one per attention mixer, two per mamba mixer (ln, gn), one per
+    # MLP, and the final one
+    n_norms = cfg.n_layers * ({"flash_attention": 1, "ssd_scan": 2}[mixer] + (cfg.d_ff > 0)) + 1
+    expect = {"relational": 0, "flash_attention": 0, "ssd_scan": 0, mixer: cfg.n_layers,
+              "rmsnorm": n_norms}
     params, t_init = _sync_s(lambda: model.init(seed, device="cuda"))
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {n_params} parameters "
+    log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {n_params} parameters "
         f"(fp32, {n_params * 4 / 1e9:.1f} GB) drawn from seed {seed} in {t_init:.2f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
@@ -1120,13 +1253,12 @@ def phase_serve(seed: int):
     _reset_counts()
     logits, t_fwd = _sync_s(lambda: model.forward_step(params, batch))
     fwd_counts = _counts()
-    if fwd_counts["flash_attention"] != cfg.n_layers or fwd_counts["rmsnorm"] != 2 * cfg.n_layers + 1:
-        fail(f"serve: forward_step launched {fwd_counts}, expected {cfg.n_layers} flash "
-             f"attention and {2 * cfg.n_layers + 1} rmsnorm")
+    if fwd_counts != expect:
+        fail(f"{tag}: forward_step launched {fwd_counts}, expected {expect}")
     if tuple(logits.shape) != (2, 4096, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"serve: forward logits of shape {tuple(logits.shape)} or not finite")
+        fail(f"{tag}: forward logits of shape {tuple(logits.shape)} or not finite")
     _, t_fwd2 = _sync_s(lambda: model.forward_step(params, batch))
-    log(f"serve: forward_step on 2 x 4096 tokens: {t_fwd:.3f} s (first call), {t_fwd2:.3f} s "
+    log(f"{tag}: forward_step on 2 x 4096 tokens: {t_fwd:.3f} s (first call), {t_fwd2:.3f} s "
         f"(second); launches {fwd_counts}")
 
     prompts = torch.randint(2, cfg.vocab, (4, 128), generator=gen, device="cuda")
@@ -1139,12 +1271,12 @@ def phase_serve(seed: int):
     t_full = min(t_full, _sync_s(lambda: greedy_generate(model, params, prompts, max_new_tokens=32))[1])
     gen_counts = _counts()
     steps = 2 * (128 + (128 + 31))
-    if gen_counts["rmsnorm"] != steps * (2 * cfg.n_layers + 1) or gen_counts["flash_attention"]:
-        fail(f"serve: greedy_generate launched {gen_counts} over {steps} decode steps")
+    if gen_counts != dict({k: 0 for k in expect}, rmsnorm=steps * n_norms):
+        fail(f"{tag}: greedy_generate launched {gen_counts} over {steps} decode steps")
     if tuple(toks.shape) != (4, 32) or not torch.equal(toks[:, :1], first):
-        fail("serve: greedy_generate's tokens have the wrong shape or first token")
+        fail(f"{tag}: greedy_generate's tokens have the wrong shape or first token")
     if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
-        fail("serve: greedy_generate produced a token outside the vocabulary")
+        fail(f"{tag}: greedy_generate produced a token outside the vocabulary")
     peak = torch.cuda.max_memory_allocated()
 
     # decode alone: 31 greedy steps of 4 after the 128-token prompt, as in
@@ -1152,84 +1284,114 @@ def phase_serve(seed: int):
     caches = init_caches(model, 4, 160)
     for t in range(128):
         logits_t, caches = model.decode_step(params, caches, prompts[:, t], t)
+    state = {k: v.clone() for k, v in tree_leaves(caches)}  # SSM caches move on every step
 
-    def decode_31():
+    def decode_from(t0, n):
+        for k, v in tree_leaves(caches):
+            v.copy_(state[k])
         tok = logits_t.argmax(-1)
-        for t in range(128, 159):
+        for t in range(t0, t0 + n):
             lg, _ = model.decode_step(params, caches, tok, t)
             tok = lg.argmax(-1)
 
-    t_dec = min(_sync_s(decode_31)[1], _sync_s(decode_31)[1])
+    t_dec = min(_sync_s(lambda: decode_from(128, 31))[1], _sync_s(lambda: decode_from(128, 31))[1])
     decode_tps = 4 * 31 / t_dec
-    log(f"serve: greedy_generate 4 x 128 prompt tokens: prefill (token by token) {t_prefill:.3f} s; "
+    log(f"{tag}: greedy_generate 4 x 128 prompt tokens: prefill (token by token) {t_prefill:.3f} s; "
         f"with 32 new tokens {t_full:.3f} s; launches {gen_counts}")
-    log(f"serve: decode alone, 31 steps of 4 after the prompt: {t_dec:.3f} s, {decode_tps:.1f} "
+    log(f"{tag}: decode alone, 31 steps of 4 after the prompt: {t_dec:.3f} s, {decode_tps:.1f} "
         f"tokens/s ({t_dec / 31 * 1e3:.2f} ms a step)")
-    log(f"serve: device memory high-water mark of serving (weights, forward_step, "
+    log(f"{tag}: device memory high-water mark of serving (weights, forward_step, "
         f"greedy_generate) {peak / 2**30:.2f} GiB ({peak} bytes)")
 
     # where the time goes: one profiled forward_step, and 8 profiled decode steps at B=4
-    _log_profile("profiled forward_step", _device_profile(lambda: model.forward_step(params, batch)))
-
-    def eight_steps():
-        tok = logits_t.argmax(-1)
-        for t in range(128, 136):
-            lg, _ = model.decode_step(params, caches, tok, t)
-            tok = lg.argmax(-1)
-
-    _log_profile("8 profiled decode steps (B=4, cache of 160)", _device_profile(eight_steps))
-    del caches
+    _log_profile(tag, "profiled forward_step",
+                 _device_profile(lambda: model.forward_step(params, batch)))
+    _log_profile(tag, "8 profiled decode steps (B=4, cache of 160)",
+                 _device_profile(lambda: decode_from(128, 8)))
+    del caches, state
 
     # the plain path, free running, with every kernel also run on its inputs
     with _recording() as rec_p, _kernels_on_plain_inputs() as held:
         logits_plain, t_plain = _sync_s(lambda: plain.forward_step(params, batch))
     with _recording() as rec_a:
         model.forward_step(params, batch)
-    # the control: the plain path summed in another order (attention blocks of 256, not 512)
+    # the control: the plain path summed in another order
+    ctx, ctrl_model = control()
     _reset_counts()
-    with _plain_blocks(256), _recording() as rec_c:
-        logits_ctrl = plain.forward_step(params, batch)
+    with ctx, _recording() as rec_c:
+        logits_ctrl = ctrl_model.forward_step(params, batch)
     if any(_counts().values()):
-        fail(f"serve: the plain path launched a kernel: {_counts()}")
+        fail(f"{tag}: the plain path launched a kernel: {_counts()}")
     diff, ratio, agree = _compare(logits, logits_plain, LOGIT_TOL)
     c_diff, c_ratio, c_agree = _compare(logits_ctrl, logits_plain, LOGIT_TOL)
     div_a = _layer_divergence(rec_a.xs, rec_p.xs)
     div_c = _layer_divergence(rec_c.xs, rec_p.xs)
     del logits_ctrl, rec_a, rec_p, rec_c
-    log(f"serve: plain forward {t_plain:.3f} s (with the kernels run beside it); every layer's "
-        f"flash attention and RMSNorm inputs through the kernels: worst distance "
-        f"{held.worst['flash_attention']:.3f} and {held.worst['rmsnorm']:.3f} tolerances over "
-        f"{held.calls['flash_attention']} and {held.calls['rmsnorm']} calls")
-    log(f"serve: logits, kernels against plain, free running: max abs diff {diff:.4e} "
+    held_calls = {k: v for k, v in held.calls.items() if v}
+    log(f"{tag}: plain forward {t_plain:.3f} s (with the kernels run beside it); every layer's "
+        f"kernel inputs through the kernels: worst distance in tolerances "
+        + ", ".join(f"{k} {held.worst[k]:.3f} over {n} calls" for k, n in held_calls.items()))
+    log(f"{tag}: logits, kernels against plain, free running: max abs diff {diff:.4e} "
         f"({ratio:.2f} x tol {LOGIT_TOL}), argmax equal at {agree} of {2 * 4096}; control "
-        f"(the plain path with attention blocks of 256 against 512): {c_diff:.4e} "
-        f"({c_ratio:.2f} x tol), argmax equal at {c_agree}")
-    log("serve: residual-stream divergence, max |difference| / max |plain| after layers "
+        f"({control_what}): {c_diff:.4e} ({c_ratio:.2f} x tol), argmax equal at {c_agree}")
+    log(f"{tag}: residual-stream divergence, max |difference| / max |plain| after layers "
         + ", ".join(f"{l}: {div_a[l]:.3e} (control {div_c[l]:.3e})"
-                    for l in sorted({1, 2, 4, 8, 16, 24, len(div_a) - 1} & set(range(len(div_a))))))
-    if held.calls["flash_attention"] != cfg.n_layers or held.calls["rmsnorm"] != 2 * cfg.n_layers + 1:
-        fail(f"serve: the plain path ran {held.calls} kernel inputs")
+                    for l in sorted({1, 2, 4, 8, 16, 24, 32, 48, len(div_a) - 1} & set(range(len(div_a))))))
+    if held_calls != {k: v for k, v in expect.items() if v}:
+        fail(f"{tag}: the plain path ran {held.calls} kernel inputs, expected {expect}")
     for name, worst in held.worst.items():
         if worst > 1.0:
-            fail(f"serve: {name} on the main path's inputs is {worst:.3f} tolerances from plain")
+            fail(f"{tag}: {name} on the main path's inputs is {worst:.3f} tolerances from plain")
     if diff > CONTROL_FACTOR * c_diff or (2 * 4096 - agree) > CONTROL_FACTOR * (2 * 4096 - c_agree):
-        fail(f"serve: the kernels' logits part from the plain path by more than {CONTROL_FACTOR} x "
+        fail(f"{tag}: the kernels' logits part from the plain path by more than {CONTROL_FACTOR} x "
              f"the plain path's own reordering does (max abs {diff:.4e} vs {c_diff:.4e}, "
              f"argmax {agree} vs {c_agree})")
 
     dec = _decode_against_forward(model, params, batch["tokens"], logits)
     dec_plain = _decode_against_forward(plain, params, batch["tokens"], logits_plain)
-    log(f"serve: decode steps 0..63 against the forward's logits: max abs diff {dec:.4e} on the "
+    log(f"{tag}: decode steps 0..63 against the forward's logits: max abs diff {dec:.4e} on the "
         f"kernel path, {dec_plain:.4e} on the plain path")
     if dec > CONTROL_FACTOR * dec_plain:
-        fail(f"serve: decode against forward parts by {dec:.4e} on the kernel path, more than "
+        fail(f"{tag}: decode against forward parts by {dec:.4e} on the kernel path, more than "
              f"{CONTROL_FACTOR} x the plain path's {dec_plain:.4e}")
     del logits_plain
-    log(f"serve: device memory high-water mark with the checks' recordings "
+    log(f"{tag}: device memory high-water mark with the checks' recordings "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = {k: fwd_counts[k] + gen_counts[k] for k in fwd_counts}
     return {"launches": launches, "t_forward": t_fwd2, "t_prefill": t_prefill,
             "decode_tps": decode_tps, "peak_bytes": peak}
+
+
+# -- 7. serve llama3-8b ------------------------------------------------------------
+
+
+def phase_serve(seed: int):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("llama3-8b")
+    # control: attention blocks of 256 instead of the plain path's 512
+    return _serve("serve", cfg, seed, "flash_attention",
+                  lambda: (_plain_blocks(256), build_model(cfg, attn_impl="reference")),
+                  "the plain path with attention blocks of 256 against 512")
+
+
+# -- 8. serve mamba2-2.7b ----------------------------------------------------------
+
+
+def phase_serve_mamba(seed: int):
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("mamba2-2.7b")
+    # control: SSD in chunks of 128 instead of 256, the same function
+    ctrl = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128))
+    return _serve("serve-mamba", cfg, seed, "ssd_scan",
+                  lambda: (contextlib.nullcontext(), build_model(ctrl, attn_impl="reference")),
+                  "the plain path with SSD chunks of 128 against 256")
 
 
 def _leaves(tree):
@@ -1255,6 +1417,7 @@ def main() -> int:
     phase_reuse()
     llm = phase_llm_kernels(args.seed)
     serve = phase_serve(args.seed)
+    mamba = phase_serve_mamba(args.seed)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",
@@ -1269,15 +1432,17 @@ def main() -> int:
         "bound_by": shape["bound_by"],
         "library_ms": None,
     }]
+    # launches: the sum over the serving paths, each counted from 0 around its own run
     for name, replaces in (("rmsnorm", "src/repro/kernels/rmsnorm.py:20"),
-                           ("flash_attention", "src/repro/kernels/flash_attention.py:112")):
+                           ("flash_attention", "src/repro/kernels/flash_attention.py:112"),
+                           ("ssd_scan", "src/repro/kernels/ssd_scan.py:89")):
         k = llm[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": serve["launches"][name],
+            "launches": serve["launches"][name] + mamba["launches"][name],
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

@@ -6,19 +6,18 @@
   * ``"cuda"``      — the kernel; raises ``ValueError`` for CPU tensors;
   * ``"reference"`` — the plain PyTorch version, asked for by name, on any
                       device.
-
-The reference's ``ssd`` comes with the Mamba slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_kernel
 
 IMPLS = ("auto", "cuda", "reference")
 
@@ -51,6 +50,24 @@ def flash_attention(
             q_block=q_block, kv_block=kv_block, q_offset=q_offset,
         )
     return _flash_kernel(q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset)
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    tensors = (x, dt, A, Bm, Cm) + ((initial_state,) if initial_state is not None else ())
+    _check(impl, "ssd", *tensors)
+    if impl == "reference":
+        return ref.ssd_reference(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+    return _ssd_kernel(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
 
 
 def rmsnorm(

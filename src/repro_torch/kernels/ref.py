@@ -8,7 +8,10 @@ computation a kernel wrapper runs for tensors on the CPU:
     attention (``_flash_fwd_impl`` with ``_block_bias``), blocked as the
     flash kernel is: kernel 3's plain version;
   * ``decode_attention_reference`` — one new token against a KV cache;
-  * ``rmsnorm_reference`` — kernel 2's plain version.
+  * ``rmsnorm_reference`` — kernel 2's plain version;
+  * ``ssd_reference`` — the chunked Mamba-2 SSD scan, kernel 4's plain
+    version (with ``_segsum``), and ``ssd_decode_step``, the one-token
+    recurrence the decode path runs.
 
 The flash custom VJP of the reference comes with the training slice.
 """
@@ -179,6 +182,107 @@ def decode_attention_reference(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs.to(k_cache.dtype).float(), v_cache.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) — chunked reference
+# ---------------------------------------------------------------------------
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k] for j<i,
+    -inf above the diagonal (no contribution)."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    idx = torch.arange(L, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def ssd_reference(
+    x: torch.Tensor,    # (B, L, H, P) inputs per head
+    dt: torch.Tensor,   # (B, L, H)    softplus'd step sizes
+    A: torch.Tensor,    # (H,)         negative decay rates
+    Bm: torch.Tensor,   # (B, L, G, N) input projections
+    Cm: torch.Tensor,   # (B, L, G, N) output projections
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba-2, arXiv:2405.21060 Listing 1), fp32 inside.
+
+    Returns (y: (B, L, H, P) in x's dtype, final_state: (B, H, P, N) fp32).
+    The reference's ``lax.scan`` over chunks is a Python loop here."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if chunk <= 0 or L % chunk:
+        raise ValueError(f"ssd: sequence length {L} is not a multiple of chunk {chunk}")
+    nc = L // chunk
+    rep = H // G
+
+    f32 = torch.float32
+    x_ = x.reshape(Bsz, nc, chunk, H, P).to(f32)
+    dt_ = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    B_ = Bm.reshape(Bsz, nc, chunk, G, N).to(f32)
+    C_ = Cm.reshape(Bsz, nc, chunk, G, N).to(f32)
+
+    dA = dt_ * A.to(f32)[None, None, None, :]               # (B, nc, c, H)
+    dA_cs = torch.cumsum(dA, dim=2)                          # within-chunk cumsum
+
+    # 1) intra-chunk (diagonal blocks): Y_diag = (C Bᵀ ∘ L) · (dt·x)
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))        # (B, nc, H, c, c)
+    CB = torch.einsum("bzcgn,bzsgn->bzgcs", C_, B_)          # (B, nc, G, c, c)
+    CB = torch.repeat_interleave(CB, rep, dim=2)             # (B, nc, H, c, c)
+    dtx = x_ * dt_[..., None]                                # (B, nc, c, H, P)
+    y_diag = torch.einsum("bzhcs,bzshp->bzchp", CB * Lmat, dtx)
+
+    # 2) chunk-final states: S_z = Σ_s exp(dA_cs[end]-dA_cs[s]) B_s ⊗ dtx_s
+    decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)    # (B, nc, c, H)
+    Bh = torch.repeat_interleave(B_, rep, dim=3)             # (B, nc, c, H, N)
+    states = torch.einsum("bzshn,bzshp->bzhpn", Bh * decay_to_end[..., None], dtx)
+
+    # 3) inter-chunk recurrence: carry the running state across chunks,
+    #    keeping the state entering each chunk
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])              # (B, nc, H)
+    carry = (initial_state.to(f32) if initial_state is not None
+             else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
+    prev = []
+    for z in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, z, :, None, None] + states[:, z]
+    prev_states = torch.stack(prev, dim=1)                   # (B, nc, H, P, N)
+
+    # 4) inter-chunk output: Y_off = (C_s · S_prev) * exp(dA_cs[s])
+    state_decay = torch.exp(dA_cs)                           # (B, nc, c, H)
+    Ch = torch.repeat_interleave(C_, rep, dim=3)             # (B, nc, c, H, N)
+    y_off = torch.einsum("bzchn,bzhpn->bzchp", Ch, prev_states) * state_decay[..., None]
+
+    y = (y_diag + y_off).reshape(Bsz, L, H, P)
+    return y.to(x.dtype), carry
+
+
+def ssd_decode_step(
+    state: torch.Tensor,  # (B, H, P, N)
+    x: torch.Tensor,      # (B, H, P)
+    dt: torch.Tensor,     # (B, H)
+    A: torch.Tensor,      # (H,)
+    Bm: torch.Tensor,     # (B, G, N)
+    Cm: torch.Tensor,     # (B, G, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSM recurrence: h ← h·exp(dt·A) + dt·(B ⊗ x); y = C·h.
+    Returns (y (B, H, P) in x's dtype, new state in the state's dtype)."""
+    H = x.shape[1]
+    G = Bm.shape[1]
+    rep = H // G
+    f32 = torch.float32
+    dA = torch.exp(dt.to(f32) * A.to(f32)[None, :])             # (B, H)
+    Bh = torch.repeat_interleave(Bm.to(f32), rep, dim=1)        # (B, H, N)
+    Ch = torch.repeat_interleave(Cm.to(f32), rep, dim=1)
+    dBx = torch.einsum("bhn,bhp->bhpn", Bh, x.to(f32) * dt.to(f32)[..., None])
+    new_state = state.to(f32) * dA[..., None, None] + dBx
+    y = torch.einsum("bhn,bhpn->bhp", Ch, new_state)
+    return y.to(x.dtype), new_state.to(state.dtype)
 
 
 def rmsnorm_reference(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

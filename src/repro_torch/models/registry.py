@@ -1,4 +1,5 @@
-"""Model facade for the dense LM family (the port of ``models/registry.py``).
+"""Model facade for the dense and SSM (Mamba-2) LM families (the port of
+``models/registry.py``).
 
   model.init(seed, device="cuda")             real params on the device
   model.forward(params, tokens)               logits (B, S, V), bf16
@@ -6,10 +7,11 @@
   model.decode_step(params, caches, token, pos)
 
 ``attn_impl`` ("auto" | "cuda" | "reference", ``kernels/ops.py``) selects
-the flash attention and the RMSNorm implementation.  It defaults to
+the flash attention, SSD scan and RMSNorm implementation.  It defaults to
 "auto": the hand-written kernels on CUDA tensors.  The reference defaults
-to its plain path; "reference" names the port's plain path.  Loss and
-training, ``remat`` and the sharding specs come with later slices.
+to its plain path; "reference" names the port's plain path.  The MoE,
+hybrid, audio and VLM families, loss and training, ``remat`` and the
+sharding specs come with later slices.
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import IMPLS
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import init_tree, tree_leaves
+
+
+FAMILIES = ("dense", "ssm")
+LATER_SLICES = {
+    "moe": "the MoE and hybrid slice, ROADMAP queue 1: models/moe.py",
+    "hybrid": "the MoE and hybrid slice, ROADMAP queue 1: models/moe.py",
+    "audio": "the whisper and VLM slice, ROADMAP queue 1: models/encdec.py",
+    "vlm": "the whisper and VLM slice, ROADMAP queue 1: models/vlm.py",
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -43,10 +54,11 @@ class Model:
     attn_impl: str = "auto"
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: family {self.cfg.family!r} comes with a later slice "
-                "(ROADMAP queue 1); this slice serves the dense family")
+                f"({LATER_SLICES.get(self.cfg.family, 'ROADMAP queue 1')}); the port serves "
+                f"the {' and '.join(FAMILIES)} families")
         if self.attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}; one of {IMPLS}")
 
@@ -92,7 +104,7 @@ class Model:
         return total
 
     def n_active_params(self) -> int:
-        """Active per token: every parameter, for the dense family."""
+        """Active per token: every parameter, for the dense and SSM families."""
         return self.n_params()
 
 

@@ -1,11 +1,11 @@
 """Decoder-only LM assembled from the per-layer pattern (the port of
-``models/transformer.py``, dense family).
+``models/transformer.py``: the dense family and the Mamba-2 SSM family).
 
 The parameter tree keeps the reference's keys: ``embed``, ``final_ln``,
 ``lm_head`` (untied archs), the stacked ``scan`` whose leaves carry a leading
 ``n_periods`` axis, and ``tail{i}`` for the layers after the last whole
 period.  The reference's ``lax.scan`` over periods is a Python loop over
-that axis here.  Mamba and MoE layers come with later slices and raise.
+that axis here.  MoE layers come with a later slice and raise.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, tree_map
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -28,14 +29,10 @@ COMPUTE_DTYPE = torch.bfloat16
 
 def _layer_defs(cfg: ArchConfig, layer_idx: int) -> Dict[str, Any]:
     kind = cfg.pattern[layer_idx]
-    if kind == "mamba":
-        raise NotImplementedError(
-            f"{cfg.name}: mamba layers come with the mamba2-2.7b serving slice "
-            "(ROADMAP queue 1: models/ssm.py and queue-2 kernel 4)")
     if cfg.moe is not None and cfg.moe_layer_mask()[layer_idx]:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers come with the MoE and hybrid slice (ROADMAP queue 1: models/moe.py)")
-    defs: Dict[str, Any] = {"mixer": A.attn_defs(cfg)}
+    defs: Dict[str, Any] = {"mixer": S.mamba_defs(cfg) if kind == "mamba" else A.attn_defs(cfg)}
     if cfg.d_ff > 0:
         defs["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff)
     return defs
@@ -92,10 +89,17 @@ def _head(params: Dict[str, Any], cfg: ArchConfig) -> torch.Tensor:
 
 
 def _block_fwd(lp, x, cfg: ArchConfig, kind: str, positions, attn_impl: str) -> torch.Tensor:
-    x = A.attn_block(lp["mixer"], x, cfg, kind, positions=positions, attn_impl=attn_impl)
+    if kind == "mamba":
+        x = S.mamba_block(lp["mixer"], x, cfg, ssd_impl=attn_impl_to_ssd(attn_impl))
+    else:
+        x = A.attn_block(lp["mixer"], x, cfg, kind, positions=positions, attn_impl=attn_impl)
     if "ffn" in lp:
         x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
     return x
+
+
+def attn_impl_to_ssd(attn_impl: str) -> str:
+    return attn_impl  # same dispatch vocabulary
 
 
 @torch.no_grad()
@@ -116,7 +120,7 @@ def lm_forward(
 
 
 # ---------------------------------------------------------------------------
-# Decode (serve_step): one token against stacked KV caches
+# Decode (serve_step): one token against stacked KV/SSM caches
 # ---------------------------------------------------------------------------
 
 
@@ -126,7 +130,7 @@ def lm_cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
 
     def layer_cache(kind):
         if kind == "mamba":
-            raise NotImplementedError(f"{cfg.name}: mamba caches come with the mamba2-2.7b slice")
+            return S.mamba_cache_shape(cfg, batch)
         return A.attn_cache_shape(cfg, batch, seq)
 
     out: Dict[str, Any] = {}
@@ -142,7 +146,10 @@ def lm_cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
 
 
 def _block_decode(lp, cache, x, pos, cfg: ArchConfig, kind: str, impl: str):
-    x, cache = A.attn_decode_block(lp["mixer"], x, cache, pos, cfg, kind, impl=impl)
+    if kind == "mamba":
+        x, cache = S.mamba_decode_block(lp["mixer"], x, cache, pos, cfg, impl=impl)
+    else:
+        x, cache = A.attn_decode_block(lp["mixer"], x, cache, pos, cfg, kind, impl=impl)
     if "ffn" in lp:
         x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=impl)
     return x, cache

@@ -1,5 +1,5 @@
-"""Batched serving: prefill + greedy decode against the KV caches (the port
-of ``serve/decode.py``)."""
+"""Batched serving: prefill + greedy decode against the KV/SSM caches (the
+port of ``serve/decode.py``)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,10 @@ from repro_torch.models.registry import Model
 
 
 def init_caches(model: Model, batch: int, cache_len: int, device="cuda"):
-    """Zero KV caches for ``batch`` sequences of up to ``cache_len`` tokens."""
+    """Zero caches for ``batch`` sequences of up to ``cache_len`` tokens, in
+    the layout of ``lm_cache_shapes``: bf16 K/V for attention layers; for
+    mamba layers the bf16 conv buffer and the fp32 SSM state (whose size
+    does not depend on ``cache_len``)."""
     return T.init_cache_tree(model.cfg, batch, cache_len, device)
 
 

@@ -8,7 +8,11 @@ tests run on a GPU machine without them:
 
 Tolerances on the card: flash attention fp32 2e-6 and bf16 2e-2
 (``tests/test_kernels.py``); RMSNorm fp32 1e-6, bf16 one bf16 unit in the
-last place.
+last place; the SSD scan fp32 1e-5 (``tests/test_kernels.py``), bf16 ``y``
+2e-2, and its fp32 final state 1e-5, or 1e-4 at chunks of 256 (the
+cumulative sums of ``dt * A`` there reach ~10^2, and the plain version's
+parallel ``torch.cumsum`` and the kernel's in-order sum part by a few units
+in their last place, ~1e-5 of every decay).
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import build_model
 from repro_torch.serve import greedy_generate
 
@@ -50,6 +55,11 @@ def test_wrappers_refuse_mixed_or_unsupported_devices():
         flash_attention(q, k, v.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm(torch.ones(2, 8, device="meta"), torch.ones(8, device="meta"))
+    x, dt, A, Bm, Cm, _ = _ssd_inputs("cpu", torch.float32, 1, 16, 2, 4, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x, dt, A, Bm, Cm.to("meta"), chunk=8)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.ssd(x, dt, A, Bm, Cm, chunk=8, impl="cuda")
 
 
 def test_bare_model_init_raises_without_cuda(monkeypatch):
@@ -75,6 +85,18 @@ def test_model_on_cpu_stays_on_cpu_and_launches_nothing():
     new = greedy_generate(model, params, tokens[:, :4], max_new_tokens=3)
     assert new.shape == (2, 3) and new.device.type == "cpu"
     assert (flash_attention.launches, rmsnorm.launches) == before
+
+
+def test_mamba_on_cpu_stays_on_cpu_and_launches_nothing():
+    model = build_model(get_arch("mamba2-2.7b").with_reduced())
+    params = model.init(3, device="cpu")
+    before = (ssd_scan.launches, rmsnorm.launches)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(2, 256, (2, 33)))
+    logits = model.forward_step(params, {"tokens": tokens})
+    assert logits.shape == (2, 32, 256) and torch.isfinite(logits.float()).all()
+    new = greedy_generate(model, params, tokens[:, :4], max_new_tokens=3)
+    assert new.shape == (2, 3) and new.device.type == "cpu"
+    assert (ssd_scan.launches, rmsnorm.launches) == before
 
 
 def _cuda():
@@ -127,3 +149,67 @@ def test_rmsnorm_kernel_matches_plain_version(shape, dtype):
         w_ = want.float()
         ulp = torch.exp2(torch.floor(torch.log2(w_.abs().clamp_min(1e-30))) - 7)
         assert ((got.float() - w_).abs() <= ulp).all()
+
+
+def _ssd_inputs(device, dtype, B, L, H, P, G, N, seed=0, init=False):
+    """x, dt (softplus of a normal draw), A = -exp(...), Bm, Cm and an
+    initial state (or None); x/B/C in ``dtype``, the rest fp32."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale)
+
+    x = t((B, L, H, P), 0.5).to(device, dtype)
+    dt = torch.nn.functional.softplus(t((B, L, H))).to(device)
+    A = -torch.exp(t((H,), 0.3)).to(device)
+    Bm = t((B, L, G, N), 0.3).to(device, dtype)
+    Cm = t((B, L, G, N), 0.3).to(device, dtype)
+    state = t((B, H, P, N)).to(device) if init else None
+    return x, dt, A, Bm, Cm, state
+
+
+SSD_CASES = [
+    # (B, L, H, P, G, N, chunk, dtype, initial state)
+    (2, 4096, 80, 64, 1, 128, 256, torch.bfloat16, False),  # the mamba2-2.7b prefill
+    (2, 256, 80, 64, 1, 128, 256, torch.bfloat16, False),   # a single chunk
+    (2, 1024, 8, 64, 2, 128, 256, torch.bfloat16, False),   # G > 1, H/G = 4
+    (2, 1024, 16, 64, 1, 128, 256, torch.bfloat16, True),   # a nonzero initial state
+    (1, 2048, 80, 64, 1, 128, 256, torch.bfloat16, False),  # B = 1
+    (1, 64, 2, 8, 1, 16, 16, torch.float32, False),         # tests/test_kernels.py
+    (2, 128, 4, 16, 2, 32, 32, torch.float32, False),
+    (1, 96, 8, 8, 4, 8, 32, torch.float32, False),
+    (1, 288, 6, 80, 3, 10, 96, torch.float32, True),        # P > 64, N % 4 != 0, chunk 96
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(str, c[:7])) + f"-{c[7]}-{c[8]}")
+def test_ssd_kernel_matches_plain_version(case):
+    _cuda()
+    B, L, H, P, G, N, chunk, dtype, init = case
+    x, dt, A, Bm, Cm, state = _ssd_inputs("cuda", dtype, B, L, H, P, G, N, seed=L + H, init=init)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=state)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_st = ref.ssd_reference(x, dt, A, Bm, Cm, chunk=chunk, initial_state=state)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == (B, H, P, N)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    st_tol = 1e-4 if chunk >= 256 else 1e-5
+    torch.testing.assert_close(st, want_st, atol=st_tol, rtol=st_tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_strided_dt_and_refuses_a_ragged_chunk():
+    _cuda()
+    x, dt, A, Bm, Cm, _ = _ssd_inputs("cuda", torch.float32, 2, 128, 4, 16, 2, 32)
+    dt_t = dt.transpose(0, 1).contiguous().transpose(0, 1)  # (B, L, H) with L outermost
+    assert not dt_t.is_contiguous()
+    y, st = ssd_scan(x, dt_t, A, Bm, Cm, chunk=32)
+    want_y, want_st = ref.ssd_reference(x, dt, A, Bm, Cm, chunk=32)
+    torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(st, want_st, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=48)

@@ -1,12 +1,14 @@
-"""The port's dense LM on the CPU against the reference's.
+"""The port's dense and Mamba-2 LMs on the CPU against the reference's.
 
-For the reduced llama3-8b, gemma3-27b, glm4-9b and command-r-plus-104b, the
-reference's ``Model.init`` parameters are carried to the port with
-``params_from_reference``; then the port's forward logits (plain path on the
-host) are held to the reference's ``attn_impl="reference"`` forward, and its
-decode-step logits to the reference's over 16 positions.  Both compute in
-bf16: atol = rtol = 2e-2.  Parameter counts of the full-size configs must
-equal the reference's.
+For the reduced llama3-8b, gemma3-27b, glm4-9b, command-r-plus-104b and
+mamba2-2.7b, the reference's ``Model.init`` parameters are carried to the
+port with ``params_from_reference``; then the port's forward logits (plain
+path on the host) are held to the reference's ``attn_impl="reference"``
+forward, and its decode-step logits to the reference's over 16 positions.
+Both compute in bf16: atol = rtol = 2e-2.  Parameter counts of the full-size
+configs must equal the reference's.  The mamba block's pieces whose
+semantics are easy to miss (the causal conv, the softplus of ``dt``, the
+decode step's conv buffer) are held to ``repro.models.ssm`` on their own.
 """
 
 import jax
@@ -17,15 +19,18 @@ import torch
 
 from repro.configs import get_arch as ref_arch
 from repro.models import build_model as ref_build
+from repro.models import ssm as RS
 from repro.models import transformer as RT
 from repro_torch.carry import params_from_reference
 from repro_torch.configs import get_arch
 from repro_torch.configs.registry import ARCHS
 from repro_torch.models import build_model
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import tree_leaves
 
 DENSE = ["llama3-8b", "gemma3-27b", "glm4-9b", "command-r-plus-104b"]
+SERVED = DENSE + ["mamba2-2.7b"]
 TOL = 2e-2  # bf16 activations and logits in both
 
 
@@ -47,7 +52,7 @@ def _close(got, want, what):
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL, err_msg=what)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_params_carry_leaf_for_leaf(arch):
     rm, rp, pm, pp = _pair(arch)
     ref_leaves = {"/".join(str(k.key) for k in path): leaf
@@ -63,7 +68,7 @@ def test_params_carry_leaf_for_leaf(arch):
                                 for _, t in tree_leaves(pp["scan"]))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_matches_reference(arch):
     rm, rp, pm, pp = _pair(arch)
     toks = _tokens(rm.cfg.vocab, (2, 33), seed=1)
@@ -73,7 +78,7 @@ def test_forward_matches_reference(arch):
     _close(got.float().numpy(), want, f"{arch} forward logits")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_decode_step_matches_reference(arch):
     rm, rp, pm, pp = _pair(arch, seed=1)
     B, S = 2, 16
@@ -129,7 +134,7 @@ def test_decode_clamps_an_out_of_range_pos_as_the_reference_does(pos):
         assert np.array_equal(np.delete(g, slot, axis=2), np.delete(old, slot, axis=2))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b", "mamba2-2.7b"])
 def test_prefill_matches_reference(arch):
     """``lm_prefill`` (decode-based, fills the caches) against the
     reference's: the last position's logits and the caches."""
@@ -147,12 +152,13 @@ def test_prefill_matches_reference(arch):
 
 
 def test_n_params_equal_the_reference_at_full_size():
-    for arch in DENSE:
+    for arch in SERVED:
         assert build_model(get_arch(arch)).n_params() == ref_build(ref_arch(arch)).n_params(), arch
         assert build_model(get_arch(arch)).n_active_params() == ref_build(ref_arch(arch)).n_active_params()
     assert 8.0e9 <= build_model(get_arch("llama3-8b")).n_params() <= 8.5e9
     assert 25e9 <= build_model(get_arch("gemma3-27b")).n_params() <= 30e9
     assert 95e9 <= build_model(get_arch("command-r-plus-104b")).n_params() <= 112e9
+    assert 2.5e9 <= build_model(get_arch("mamba2-2.7b")).n_params() <= 3.0e9
 
 
 def test_silu_is_the_references_bit_for_bit_in_bf16():
@@ -180,7 +186,69 @@ def test_configs_are_the_reference_configs():
             assert getattr(cfg.with_reduced(), field) == getattr(ref.with_reduced(), field), (name, field)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
 def test_families_of_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(get_arch(arch).with_reduced())
+
+
+def _bf16(a):
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(np.array(a)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_causal_conv_matches_reference(seed):
+    """The taps summed in order, each product and add rounded in bf16, then
+    the bias and the op-by-op silu: the reference's bits."""
+    rng = np.random.default_rng(seed)
+    jx, tx = _bf16(rng.standard_normal((2, 19, 48), dtype=np.float32))
+    w = rng.standard_normal((4, 48), dtype=np.float32) * 0.3
+    b = rng.standard_normal((48,), dtype=np.float32) * 0.1
+    want = np.asarray(RS._causal_conv(jx, jnp.asarray(w), jnp.asarray(b), 4), np.float32)
+    got = S._causal_conv(tx, torch.from_numpy(w), torch.from_numpy(b), 4)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_softplus_of_dt_matches_jax_on_both_sides_of_the_torch_threshold():
+    """``jax.nn.softplus`` is ``logaddexp(x, 0)`` everywhere (``F.softplus``
+    switches to x above its threshold of 20); the port computes the same."""
+    x = np.concatenate([np.linspace(-40, 40, 161, dtype=np.float32),
+                        np.random.default_rng(3).standard_normal(200).astype(np.float32) * 8])
+    want = np.asarray(jax.nn.softplus(jnp.asarray(x)))
+    got = S.softplus(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mamba_decode_block_matches_reference_and_keeps_its_conv_buffer(seed):
+    """One decode step of a reduced mamba block from nonzero caches: the
+    output, the bf16 conv buffer (the last d_conv - 1 inputs of x, B and C
+    projections, concatenated) and the fp32 state, against the reference."""
+    cfg, rcfg = get_arch("mamba2-2.7b").with_reduced(), ref_arch("mamba2-2.7b").with_reduced()
+    rng = np.random.default_rng(seed)
+    rp = RS.mamba_defs(rcfg)
+    rparams = {k: (rng.standard_normal(pd.shape, dtype=np.float32) * 0.2
+                   + (1.0 if pd.init == "ones" else 0.0)).astype(np.float32)
+               for k, pd in rp.items()}
+    shapes = RS.mamba_cache_shape(rcfg, 2)
+    conv = rng.standard_normal(shapes["conv"].shape, dtype=np.float32)
+    ssm = rng.standard_normal(shapes["ssm"].shape, dtype=np.float32)
+    x = rng.standard_normal((2, 1, cfg.d_model), dtype=np.float32)
+    jx, tx = _bf16(x)
+    want, wc = RS.mamba_decode_block({k: jnp.asarray(v) for k, v in rparams.items()}, jx,
+                                     {"conv": jnp.asarray(conv, jnp.bfloat16),
+                                      "ssm": jnp.asarray(ssm)}, jnp.asarray(3), rcfg)
+    assert {k: (tuple(v[0]), v[1]) for k, v in S.mamba_cache_shape(cfg, 2).items()} == {
+        "conv": (tuple(shapes["conv"].shape), torch.bfloat16),
+        "ssm": (tuple(shapes["ssm"].shape), torch.float32)}
+    cache = {"conv": torch.from_numpy(conv).to(torch.bfloat16), "ssm": torch.from_numpy(ssm)}
+    got, gc = S.mamba_decode_block({k: torch.from_numpy(v) for k, v in rparams.items()}, tx,
+                                   cache, 3, cfg)
+    assert gc["conv"] is cache["conv"] and gc["ssm"] is cache["ssm"]  # updated in place
+    np.testing.assert_array_equal(gc["conv"].float().numpy(), np.asarray(wc["conv"], np.float32))
+    # the buffer is the old one shifted by one token, the new token's projections last
+    np.testing.assert_array_equal(gc["conv"][:, :-1].float().numpy(),
+                                  torch.from_numpy(conv).to(torch.bfloat16)[:, 1:].float().numpy())
+    np.testing.assert_allclose(gc["ssm"].numpy(), np.asarray(wc["ssm"]), atol=TOL, rtol=TOL)
+    _close(got.float().numpy(), want, "mamba decode block output")

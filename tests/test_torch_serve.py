@@ -1,4 +1,5 @@
-"""The port's ``greedy_generate`` on the CPU against the reference's.
+"""The port's ``greedy_generate`` on the CPU against the reference's, for
+reduced dense models and reduced mamba2-2.7b (KV caches and SSM caches).
 
 From the same parameters (carried with ``params_from_reference``), the
 reference generates greedily; both packages then run teacher-forced along
@@ -50,7 +51,7 @@ def _teacher_forced_port(model, params, seq):
     return np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b", "mamba2-2.7b"])
 def test_greedy_generate_matches_reference(arch):
     rm = ref_build(ref_arch(arch).with_reduced())
     rp = rm.init(jax.random.PRNGKey(7))
