@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles the four kernels of ``src/repro_torch/csrc/``
-                 (relational, rmsnorm, flash_attention, ssd_scan), one nvcc
-                 each, all started together.
+  2. build       compiles the six kernel sources of ``src/repro_torch/csrc/``
+                 (relational, rmsnorm, flash_attention and ssd_scan for fp32,
+                 flash_attention_sm90 and ssd_scan_sm90 for bf16 on the
+                 tensor cores), one nvcc each, all started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -43,17 +44,22 @@ Phases (any failure exits non-zero and prints no result):
                  the SSD scan at mamba2's prefill shape (B=2, L=4096, H=80,
                  P=64, G=1, N=128, chunk 256, bf16), a single chunk, G=2, a
                  nonzero initial state, B=1, and fp32 at the three shapes of
-                 ``tests/test_kernels.py``.  Tolerances: attention fp32 2e-6,
+                 ``tests/test_kernels.py``, and bf16 at chunks of 128 and 64.
+                 Tolerances: attention fp32 2e-6,
                  bf16 2e-2 (atol = rtol); RMSNorm fp32 1e-6, bf16 one bf16
                  unit in the last place; SSD fp32 1e-5, bf16 y 2e-2, final
-                 state 1e-5 (1e-4 at chunks of 256, ``_ssd_tols``).  Each
-                 kernel is timed at the prefill shape beside its plain
-                 version, one PyTorch library call where there is one, and
-                 its bound.
+                 state 1e-5 (1e-4 at chunks of 256, ``_ssd_tols``).  Every
+                 call must launch the instance of its dtype (bf16: tensor
+                 cores; fp32: CUDA cores), and every bf16 result must also
+                 agree with the plain mirror of the tensor-core arithmetic
+                 (``MIRROR_ATOL``).  Each kernel is timed at the prefill
+                 shape beside its plain version, one PyTorch library call
+                 where there is one, and its bound.
   7. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
                  weights drawn from --seed on the card: ``forward_step`` on
                  2 prompts of 4096 tokens through the kernels (32 flash
-                 attention and 65 RMSNorm launches), ``greedy_generate`` on
+                 attention launches, all of the tensor-core instance, and 65
+                 RMSNorm launches), ``greedy_generate`` on
                  4 prompts of 128 tokens with 32 new tokens (prefill wall
                  time, decode tokens per second, memory high-water mark);
                  then the same forward on the plain path (no launch), with
@@ -65,13 +71,15 @@ Phases (any failure exits non-zero and prints no result):
   8. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
                  heads of 64, state 128, vocab 50280), fp32 weights from
                  --seed, after llama3-8b's tensors are freed: the same
-                 steps as phase 7 (64 SSD and 129 RMSNorm launches per
+                 steps as phase 7 (64 SSD launches, all of the tensor-core
+                 instance, and 129 RMSNorm launches per
                  ``forward_step``), the SSD kernel also held to its plain
                  version on every layer's inputs, and the control the plain
                  path with SSD chunks of 128 instead of 256 (the same
                  function summed in another order).
   9. report      one JSON line of kernels (launches summed over both
-                 serving paths), the card's name and power limit, then the
+                 serving paths; flash attention and the SSD scan also by
+                 instance), the card's name and power limit, then the
                  result line.
 
 Options: ``--seed N`` (default 0) seeds the serving phase's weights and
@@ -143,8 +151,9 @@ def _kernel_modules():
 
 def _reset_counts():
     R, RMS, FA, SS = _kernel_modules()
-    R.relational.launches = RMS.rmsnorm.launches = FA.flash_attention.launches = 0
-    SS.ssd_scan.launches = 0
+    R.relational.launches = RMS.rmsnorm.launches = 0
+    for w in (FA.flash_attention, SS.ssd_scan):
+        w.launches = w.launches_tc = w.launches_fp32 = 0
 
 
 def _counts():
@@ -153,20 +162,28 @@ def _counts():
             "flash_attention": FA.flash_attention.launches, "ssd_scan": SS.ssd_scan.launches}
 
 
+def _instance_counts():
+    """Launches of each instance of the kernels that have two: ``tc`` (bf16,
+    tensor cores) and ``fp32`` (CUDA cores)."""
+    _, _, FA, SS = _kernel_modules()
+    return {name: {"tc": w.launches_tc, "fp32": w.launches_fp32}
+            for name, w in (("flash_attention", FA.flash_attention), ("ssd_scan", SS.ssd_scan))}
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
     R, RMS, FA, SS = _kernel_modules()
     t0 = time.perf_counter()
-    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, SS.SOURCE)
+    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, FA.SOURCE_TC, SS.SOURCE, SS.SOURCE_TC)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
         for line in str(info["log"]).splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("registers", "spill", "error", "C75")):
                 log(f"  ptxas: {line.strip()}")
     # load each and check the relational plan layout against the source
-    R._library(), RMS._library(), FA._library(), SS._library()
+    R._library(), RMS._library(), FA._library(), FA._library_tc(), SS._library(), SS._library_tc()
     log(f"build: all kernels in {wall:.2f} s of wall time")
     return {"seconds": wall}
 
@@ -797,6 +814,18 @@ RMS_CASES = (
     ("mamba2 d_model D=2560", (2, 4096, 2560), "bf16"),
     ("mamba2 gated D=5120", (2, 4096, 5120), "bf16"),
 )
+# The tensor-core instances against the mirrors of their own arithmetic:
+# every element of the output within two bf16 units in the last place of the
+# mirror's value plus MIRROR_ATOL, but for at most MIRROR_STRAYS of the
+# elements, which must be within 2e-2 (atol = rtol).  The two sum in other
+# orders, so a bf16 rounding may fall the other way: of an output, or of an
+# operand the kernel rounds to bf16 (the SSD's S_in and CB o L o dt, whose
+# one-ulp step moves an output by up to ~1e-2).  An indexing fault moves whole
+# rows or tiles.  The SSD final state within MIRROR_STATE_TOL (atol = rtol;
+# both take the cumulative sums in one order).
+MIRROR_ATOL = 1e-3
+MIRROR_STRAYS = 1e-5
+MIRROR_STATE_TOL = 1e-5
 # the SSD scan: mamba2-2.7b's prefill shape first (2 prompts of 4096 tokens,
 # 80 heads of 64, one group, state 128, chunks of 256)
 SSD_MAIN = dict(B=2, L=4096, H=80, P=64, G=1, N=128, chunk=256)
@@ -807,6 +836,8 @@ SSD_CASES = (
     ("G=2, H/G=4", dict(SSD_MAIN, L=1024, H=8, G=2), "bf16", False),
     ("initial state", dict(SSD_MAIN, L=1024), "bf16", True),
     ("B=1", dict(SSD_MAIN, B=1), "bf16", False),
+    ("chunk 128, G=2, initial state", dict(SSD_MAIN, L=1024, H=8, G=2, chunk=128), "bf16", True),
+    ("chunk 64, N=64", dict(SSD_MAIN, L=1024, H=16, N=64, chunk=64), "bf16", False),
     ("fp32 test shape 1", dict(B=1, L=64, H=2, P=8, G=1, N=16, chunk=16), "fp32", False),
     ("fp32 test shape 2", dict(B=2, L=128, H=4, P=16, G=2, N=32, chunk=32), "fp32", False),
     ("fp32 test shape 3", dict(B=1, L=96, H=8, P=8, G=4, N=8, chunk=32), "fp32", False),
@@ -879,6 +910,36 @@ def _bf16_ulp_ok(got, want) -> bool:
     return bool(((got.float() - w).abs() <= ulp).all())
 
 
+def _mirror_gap(got, want):
+    """(max abs difference, elements beyond two bf16 units in the last place
+    of ``want`` plus MIRROR_ATOL, whether that is within the tight gate): a
+    tensor-core kernel against the plain mirror of its own arithmetic
+    (``ref.flash_attention_tc_reference`` / ``ref.ssd_chunked_reference``)."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    d = (got.float() - w).abs()
+    beyond = int((d > 2 * ulp + MIRROR_ATOL).sum())
+    near = bool(torch.allclose(got.float(), w, atol=2e-2, rtol=2e-2))
+    ok = beyond <= MIRROR_STRAYS * d.numel() and near
+    return float(d.max()), beyond, ok
+
+
+def _one_instance(wrapper, dtype, call):
+    """Run ``call`` and fail unless it launched the instance of ``dtype``
+    once: the tensor-core one for bf16, the CUDA-core one for fp32."""
+    import torch
+
+    before = (wrapper.launches_tc, wrapper.launches_fp32)
+    out = call()
+    want = (before[0] + 1, before[1]) if dtype == torch.bfloat16 else (before[0], before[1] + 1)
+    if (wrapper.launches_tc, wrapper.launches_fp32) != want:
+        fail(f"{wrapper.__name__}: a {dtype} call launched tc/fp32 "
+             f"{(wrapper.launches_tc - before[0], wrapper.launches_fp32 - before[1])}")
+    return out
+
+
 def phase_llm_kernels(seed: int):
     import torch
     import torch.nn.functional as F
@@ -899,7 +960,7 @@ def phase_llm_kernels(seed: int):
         q = _randn(gen, (B, S, H, D), dtype, 0.5)
         k = _randn(gen, (B, T, KV, D), dtype, 0.5)
         v = _randn(gen, (B, T, KV, D), dtype, 0.5)
-        got = FA.flash_attention(q, k, v, **masks)
+        got = _one_instance(FA.flash_attention, dtype, lambda: FA.flash_attention(q, k, v, **masks))
         want = ref.flash_attention_reference(q, k, v, **masks)
         torch.cuda.synchronize()
         tol = 2e-6 if dt == "fp32" else 2e-2
@@ -908,8 +969,16 @@ def phase_llm_kernels(seed: int):
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             fail(f"flash attention {name}: kernel differs from the plain version "
                  f"(max abs {err:.3e}, tolerance {tol})")
+        mirror = ""
+        if dt == "bf16":
+            gap, beyond, ok = _mirror_gap(got, ref.flash_attention_tc_reference(q, k, v, **masks))
+            if not ok:
+                fail(f"flash attention {name}: the tensor-core kernel parts from its mirror: "
+                     f"{beyond} elements beyond two bf16 ulps + {MIRROR_ATOL} (max abs {gap:.3e})")
+            mirror = (f"; against its mirror {gap:.3e}, {beyond} elements beyond two ulps + "
+                      f"{MIRROR_ATOL}")
         log(f"llm-kernels: flash attention {name} {dt} B={B} S={S} T={T} H={H} KV={KV} D={D} "
-            f"{masks}: max abs err {err:.3e} (tol {tol})")
+            f"{masks}: max abs err {err:.3e} (tol {tol}){mirror}")
         if name == "prefill causal":
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -981,7 +1050,8 @@ def phase_llm_kernels(seed: int):
         Bm = _randn(gen, (B, L, G, N), dtype, 0.3)
         Cm = _randn(gen, (B, L, G, N), dtype, 0.3)
         init = _randn(gen, (B, H, P, N), torch.float32) if with_init else None
-        y, st = SS.ssd_scan(x, dts, A, Bm, Cm, chunk=chunk, initial_state=init)
+        y, st = _one_instance(SS.ssd_scan, dtype, lambda: SS.ssd_scan(
+            x, dts, A, Bm, Cm, chunk=chunk, initial_state=init))
         want_y, want_st = ref.ssd_reference(x, dts, A, Bm, Cm, chunk=chunk, initial_state=init)
         torch.cuda.synchronize()
         tol, st_tol = _ssd_tols(dtype, chunk)
@@ -994,10 +1064,20 @@ def phase_llm_kernels(seed: int):
         if not torch.allclose(st, want_st, atol=st_tol, rtol=st_tol):
             fail(f"ssd_scan {name}: kernel final state differs from the plain version "
                  f"(max abs {st_err:.3e}, tolerance {st_tol})")
-        ulp = (" " + ("within one bf16 ulp" if _bf16_ulp_ok(y, want_y) else "beyond one bf16 ulp somewhere")
-               if dt == "bf16" else "")
+        mirror = ""
+        if dt == "bf16":
+            my, mst = ref.ssd_chunked_reference(x, dts, A, Bm, Cm, chunk=chunk, initial_state=init)
+            gap, beyond, ok = _mirror_gap(y, my)
+            st_gap = float((st - mst).abs().max())
+            if not ok or not torch.allclose(st, mst, atol=MIRROR_STATE_TOL, rtol=MIRROR_STATE_TOL):
+                fail(f"ssd_scan {name}: the tensor-core kernel parts from its mirror: {beyond} "
+                     f"elements of y beyond two bf16 ulps + {MIRROR_ATOL} (max abs {gap:.3e}), "
+                     f"state {st_gap:.3e} (tolerance {MIRROR_STATE_TOL})")
+            mirror = (f"; against its mirror y {gap:.3e} ({beyond} elements beyond two ulps + "
+                      f"{MIRROR_ATOL}), state {st_gap:.3e}")
+            del my, mst
         log(f"llm-kernels: ssd_scan {name} {dt} {shape} init={with_init}: max abs err y {err:.3e} "
-            f"(tol {tol}{ulp}), state {st_err:.3e} (tol {st_tol})")
+            f"(tol {tol}), state {st_err:.3e} (tol {st_tol}){mirror}")
         if name == "prefill":
             nbytes = sum(t.numel() * t.element_size() for t in (x, dts, A, Bm, Cm, y, st))
             bound, by, flops = _ssd_bound_ms(x, Bm, chunk, nbytes)
@@ -1163,8 +1243,8 @@ def _decode_against_forward(model, params, tokens, logits, n: int = 64):
 
 # device-time kinds of the serving paths, by kernel-name substring
 SERVE_KINDS = (
-    ("flash_attention", ("flash_fwd_kernel",)),
-    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("flash_attention", ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")),
+    ("ssd_scan", ("ssd_scan_kernel", "ssd_tc_")),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "wgmma", "sm90_")),
     ("copy_cast", ("copy", "memcpy", "memset")),
@@ -1255,11 +1335,16 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
     fwd_counts = _counts()
     if fwd_counts != expect:
         fail(f"{tag}: forward_step launched {fwd_counts}, expected {expect}")
+    # every flash attention and SSD launch of the bf16 forward on the tensor cores
+    fwd_inst = _instance_counts()
+    if fwd_inst != {k: {"tc": expect[k], "fp32": 0} for k in fwd_inst}:
+        fail(f"{tag}: forward_step's launches by instance {fwd_inst}: not all on the tensor-core "
+             f"instance")
     if tuple(logits.shape) != (2, 4096, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"{tag}: forward logits of shape {tuple(logits.shape)} or not finite")
     _, t_fwd2 = _sync_s(lambda: model.forward_step(params, batch))
     log(f"{tag}: forward_step on 2 x 4096 tokens: {t_fwd:.3f} s (first call), {t_fwd2:.3f} s "
-        f"(second); launches {fwd_counts}")
+        f"(second); launches {fwd_counts}, by instance {fwd_inst}")
 
     prompts = torch.randint(2, cfg.vocab, (4, 128), generator=gen, device="cuda")
     greedy_generate(model, params, prompts[:, :8], max_new_tokens=2)  # first-use costs at B=4
@@ -1358,8 +1443,9 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
     log(f"{tag}: device memory high-water mark with the checks' recordings "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = {k: fwd_counts[k] + gen_counts[k] for k in fwd_counts}
-    return {"launches": launches, "t_forward": t_fwd2, "t_prefill": t_prefill,
-            "decode_tps": decode_tps, "peak_bytes": peak}
+    # greedy_generate launches neither (its decode steps run the plain mixers)
+    return {"launches": launches, "instances": fwd_inst, "t_forward": t_fwd2,
+            "t_prefill": t_prefill, "decode_tps": decode_tps, "peak_bytes": peak}
 
 
 # -- 7. serve llama3-8b ------------------------------------------------------------
@@ -1433,14 +1519,17 @@ def main() -> int:
         "library_ms": None,
     }]
     # launches: the sum over the serving paths, each counted from 0 around its own run
+    # flash attention and the SSD scan have two instances: the main path's bf16
+    # one on the tensor cores (its source is the entry's), and the fp32 one
     for name, replaces in (("rmsnorm", "src/repro/kernels/rmsnorm.py:20"),
                            ("flash_attention", "src/repro/kernels/flash_attention.py:112"),
                            ("ssd_scan", "src/repro/kernels/ssd_scan.py:89")):
         k = llm[name]
+        two = name in ("flash_attention", "ssd_scan")
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{name}{'_sm90' if two else ''}.cu",
             "replaces": replaces,
             "launches": serve["launches"][name] + mamba["launches"][name],
             "max_abs_err": k["max_abs_err"],
@@ -1450,6 +1539,11 @@ def main() -> int:
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if two:
+            kernels[-1]["instances"] = [
+                {"instance": inst, "dtype": dt, "source": f"src/repro_torch/csrc/{name}{suffix}.cu",
+                 "launches": serve["instances"][name][inst] + mamba["instances"][name][inst]}
+                for inst, dt, suffix in (("tc", "bf16", "_sm90"), ("fp32", "fp32", ""))]
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: never launched on its main path")

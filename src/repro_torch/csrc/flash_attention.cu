@@ -1,5 +1,6 @@
 // Flash attention, forward: GQA with causal / sliding-window / chunked-local
-// masks shifted by q_offset, for the dense LM's prefill.
+// masks shifted by q_offset.  This is the fp32 instance, on the CUDA cores;
+// bf16 inputs, the serving path's, go to flash_attention_sm90.cu (wgmma).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (_fa_kernel).  The TPU kernel walks a sequential grid (B, H, q tile,
@@ -9,7 +10,7 @@
 // a loop, with the state in registers.
 //
 // Layout: q (B, S, H, D), k and v (B, T, KV, D), o (B, S, H, D), all
-// contiguous, fp32 or bf16.  Query head h reads KV head h / (H / KV): GQA
+// contiguous, fp32.  Query head h reads KV head h / (H / KV): GQA
 // costs no copy of K or V.  Blocks of consecutive q tiles of one head read
 // the same K/V tiles, which the 50 MB L2 serves after the first.
 //
@@ -36,7 +37,6 @@
 // operations.  On the CUDA cores it can reach at most the fp32 rate, so it
 // sits well above the bf16 tensor-core bound that PERF.md states.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,14 +77,7 @@ __device__ __forceinline__ void load_tile(float* smem, int ld, const T* x, int b
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (pos < L) {
       const size_t off = ((static_cast<size_t>(b) * L + pos) * NH + head) * D + d;
-      if constexpr (sizeof(T) == 4) {
-        val = *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + off);
-      } else {
-        const uint2 raw = *reinterpret_cast<const uint2*>(reinterpret_cast<const __nv_bfloat16*>(x) + off);
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        val = make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
+      val = *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + off);
     }
     *reinterpret_cast<float4*>(smem + r * ld + d) = val;
   }
@@ -94,10 +87,6 @@ template <typename T>
 __device__ __forceinline__ void store(T* p, float v);
 template <>
 __device__ __forceinline__ void store<float>(float* p, float v) { *p = v; }
-template <>
-__device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
@@ -264,8 +253,8 @@ cudaError_t dispatch_d(int D, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) and returns the launch's
-// cudaError_t; the caller raises on anything but 0.  dtype: 0 = fp32,
-// 1 = bf16.  `window` / `chunk` apply when `has_window` / `has_chunk`.  The
+// cudaError_t; the caller raises on anything but 0.  dtype must be 0
+// (fp32).  `window` / `chunk` apply when `has_window` / `has_chunk`.  The
 // wrapper has checked shapes, types, contiguity and 16-byte alignment.
 extern "C" int veer_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         int dtype, int B, int S, int T, int H, int KV, int D,
@@ -275,9 +264,8 @@ extern "C" int veer_flash_attention_fwd(const void* q, const void* k, const void
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, B, S, T, H, KV, causal, has_window, window, has_chunk, chunk, q_offset, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? dispatch_d<float>(D, p, s)
-                                     : dispatch_d<__nv_bfloat16>(D, p, s);
-  return static_cast<int>(err);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);  // bf16: flash_attention_sm90.cu
+  return static_cast<int>(dispatch_d<float>(D, p, s));
 }
 
 extern "C" const char* veer_cuda_error_string(int code) {

@@ -5,9 +5,11 @@
 //         + exp(cs_i) C_i . state                                 (inter-chunk)
 //   state <- exp(cs_end) state + sum_j exp(cs_end - cs_j) dt_j x_j (x) B_j
 //
-// with cs the within-chunk cumulative sum of dt * A.  fp32 inside; x, B and C
-// are fp32 or bf16, dt and A fp32; y is written in x's type, the final state
-// in fp32.  The initial state is read when given, zero otherwise.
+// with cs the within-chunk cumulative sum of dt * A.  This is the fp32
+// instance, on the CUDA cores: x, B, C, dt and A fp32, y and the final state
+// fp32.  bf16 inputs, the serving path's, go to ssd_scan_sm90.cu (the
+// chunk-parallel form on tensor cores).  The initial state is read when
+// given, zero otherwise.
 //
 // Replaces src/repro/kernels/ssd_scan.py:89 ssd_pallas, whose grid
 // (B, H, n_chunks) walks the chunks in order on one TPU core and carries the
@@ -30,10 +32,9 @@
 // reads laid out to avoid bank conflicts.  Decays use expf (not __expf) and
 // the cumulative sum runs in order, as the reference's does.  The shared
 // memory (~105 KB at the main path's shape) lets two blocks share an SM.
-// Tensor cores (wgmma on bf16 tiles for C.B^T, with C.B^T computed once per
-// group) are a later optimisation.
+// The bf16 instance (ssd_scan_sm90.cu) takes the chunk-parallel form on
+// tensor cores, C.B^T once per group.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -46,15 +47,10 @@ constexpr int XS = PT + 4;    // row stride of the x tile and the state
 constexpr int MS = TJ + 4;    // row stride of the masked C.B^T tile
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ float at(const float4& v, int k) {
@@ -348,8 +344,8 @@ extern "C" long long veer_ssd_scan_smem_bytes(int N, int chunk) {
 }
 
 // Launches on `stream` (PyTorch's current stream) and returns the launch's
-// cudaError_t; the caller raises on anything but 0.  dtype 0: x, B, C and y
-// are fp32; 1: bf16.  dt and A are fp32; init_state (may be null: zeros) and
+// cudaError_t; the caller raises on anything but 0.  dtype must be 0: x, B,
+// C and y fp32.  dt and A are fp32; init_state (may be null: zeros) and
 // final_state are contiguous (B, H, P, N) fp32.  `strides` holds 15 element
 // strides: x (b, l, h), dt (b, l, h), B (b, l, g), C (b, l, g), y (b, l, h);
 // the last axis of x, B, C and y is contiguous.  L must be a multiple of
@@ -367,11 +363,9 @@ extern "C" int veer_ssd_scan(const void* x, const float* dt, const float* A, con
                    strides[10], strides[11], strides[12], strides[13], strides[14]};
   const size_t smem = static_cast<size_t>(veer_ssd_scan_smem_bytes(N, chunk));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? launch<float>(x, dt, A, Bm, Cm, init_state, y, final_state, Bsz, sh, st, smem, s)
-                 : launch<__nv_bfloat16>(x, dt, A, Bm, Cm, init_state, y, final_state, Bsz, sh, st,
-                                         smem, s);
-  return static_cast<int>(err);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);  // bf16: ssd_scan_sm90.cu
+  return static_cast<int>(
+      launch<float>(x, dt, A, Bm, Cm, init_state, y, final_state, Bsz, sh, st, smem, s));
 }
 
 extern "C" const char* veer_cuda_error_string(int code) {

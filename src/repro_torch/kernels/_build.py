@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``.cu`` file under ``src/repro_torch/csrc/`` with a plain C
-interface.  ``build`` compiles it with ``nvcc`` for ``sm_90a`` into
-``build/repro_torch/`` at the repository root, under a name keyed by the
-source's and the flags' hash, so an unchanged source is compiled once; ``load``
+interface (the tensor-core ones include the shared ``csrc/wgmma.cuh``).
+``build`` compiles it with ``nvcc`` for ``sm_90a`` into
+``build/repro_torch/`` at the repository root, under a name keyed by the hash
+of the source, the shared headers and the flags, so an unchanged source is
+compiled once; ``load``
 opens the library with ``ctypes``.  Several sources given to one ``build`` call
 are compiled by concurrent ``nvcc`` processes.
 """
@@ -46,7 +48,9 @@ class CudaSource:
         return BASE_FLAGS + self.extra_flags
 
     def lib_path(self) -> pathlib.Path:
-        key = hashlib.sha256(self.path.read_bytes() + " ".join(self.flags).encode())
+        # the shared headers (csrc/*.cuh) are part of every source's key
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        key = hashlib.sha256(self.path.read_bytes() + headers + " ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.name}_{key.hexdigest()[:16]}.so"
 
 

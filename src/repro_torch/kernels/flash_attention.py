@@ -1,15 +1,22 @@
 """Flash attention, forward: GQA, causal / sliding-window / chunked-local.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``.
-The CUDA source is ``src/repro_torch/csrc/flash_attention.cu`` (one block per
-(64-row q tile, batch x head), the fp32 online-softmax state in registers,
-fully masked kv tiles skipped), built by ``kernels/_build.py`` at first use
-and bound with ``ctypes``.
+Two hand-written CUDA instances, built by ``kernels/_build.py`` at first use
+and bound with ``ctypes``; the dtype picks one:
 
-``flash_attention`` is the wrapper: on CUDA tensors it launches the kernel
-(or raises); on CPU tensors it runs ``ref.flash_attention_reference``, the
-plain PyTorch version, blocked as the reference's flash forward is.
-``flash_attention.launches`` counts kernel launches.
+  * bf16: ``src/repro_torch/csrc/flash_attention_sm90.cu``, both products
+    as ``wgmma`` on Hopper's tensor cores (one block per 128-row q tile of
+    one batch x head, K/V tiles copied ahead with ``cp.async``, P rounded
+    to bf16 for the second product).  Its arithmetic, rounding for
+    rounding, is ``ref.flash_attention_tc_reference``.
+  * fp32: ``src/repro_torch/csrc/flash_attention.cu``, fp32 FMAs on the
+    CUDA cores (TF32 would not hold the fp32 tolerance of 2e-6).
+
+``flash_attention`` is the wrapper: on CUDA tensors it launches the instance
+of their dtype (or raises); on CPU tensors it runs
+``ref.flash_attention_reference``, the plain PyTorch version, blocked as the
+reference's flash forward is.  ``flash_attention.launches`` counts kernel
+launches, ``launches_tc`` and ``launches_fp32`` those of each instance.
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import _inv_sqrt, flash_attention_reference
 
-SOURCE = _build.CudaSource("flash_attention")
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SOURCE = _build.CudaSource("flash_attention")          # the fp32 instance
+SOURCE_TC = _build.CudaSource("flash_attention_sm90")  # the bf16 instance
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims each instance is built for
+_DTYPES = (torch.float32, torch.bfloat16)
 _I32 = 2**31 - 1
 
 
@@ -53,6 +61,8 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_fp32 = 0
 
 
 def _launch(q, k, v, causal, window, chunk, q_offset) -> torch.Tensor:
@@ -80,16 +90,25 @@ def _launch(q, k, v, causal, window, chunk, q_offset) -> torch.Tensor:
     out = torch.empty_like(q)
     if B == 0 or S == 0 or H == 0:
         return out
-    lib = _library()
+    masks = (int(bool(causal)), int(window is not None), int(window or 0),
+             int(chunk is not None), int(chunk or 0), int(q_offset))
+    tc = q.dtype == torch.bfloat16
+    lib = _library_tc() if tc else _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.veer_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-            B, S, T, H, KV, D, int(bool(causal)), int(window is not None), int(window or 0),
-            int(chunk is not None), int(chunk or 0), int(q_offset), _inv_sqrt(D), stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if tc:
+            rc = lib.veer_flash_attention_fwd_tc(*ptrs, B, S, T, H, KV, D, *masks, _inv_sqrt(D),
+                                                 stream)
+        else:
+            rc = lib.veer_flash_attention_fwd(*ptrs, 0, B, S, T, H, KV, D, *masks, _inv_sqrt(D),
+                                              stream)
     _build.check(lib, rc, "flash attention kernel")
     flash_attention.launches += 1
+    if tc:
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_fp32 += 1
     return out
 
 
@@ -100,4 +119,14 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.veer_flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_tc() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_TC)
+    lib.veer_flash_attention_fwd_tc.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.veer_flash_attention_fwd_tc.restype = ctypes.c_int
     return lib

@@ -11,7 +11,12 @@ computation a kernel wrapper runs for tensors on the CPU:
   * ``rmsnorm_reference`` — kernel 2's plain version;
   * ``ssd_reference`` — the chunked Mamba-2 SSD scan, kernel 4's plain
     version (with ``_segsum``), and ``ssd_decode_step``, the one-token
-    recurrence the decode path runs.
+    recurrence the decode path runs;
+  * ``flash_attention_tc_reference`` and ``ssd_chunked_reference`` — the
+    arithmetic of the bf16 tensor-core instances of kernels 3 and 4, rounded
+    where they round, so that a test can hold each kernel to it tightly and
+    hold it to the plain versions above at their tolerances.  Tests and
+    ``chip_smoke.py`` use them; the main path never does.
 
 The flash custom VJP of the reference comes with the training slice.
 """
@@ -148,6 +153,56 @@ def _flash_fwd_impl(
     return out[:, :S].to(q.dtype), lse[:, :S]
 
 
+TC_KV_BLOCK = 128  # keys per tile of flash_attention_sm90.cu
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_tc_reference(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, KV, D)
+    v: torch.Tensor,  # (B, T, KV, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """The arithmetic of the bf16 flash kernel (``csrc/flash_attention_sm90.cu``):
+    kv tiles of 128 keys; scores in fp32 times ``scale * log2(e)``, masked to
+    NEG_INF; the online softmax in base 2 (``exp2``), its row sum over the
+    fp32 probabilities; the probabilities rounded to bf16 for the product
+    with V, accumulated in fp32; ``acc / max(l, 1e-30)`` in q's dtype."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    f32 = torch.float32
+    scale2 = torch.tensor(_inv_sqrt(D), dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    qf = q.reshape(B, S, KV, G, D).to(f32)
+    qpos = torch.arange(S, device=dev) + q_offset
+    acc = torch.zeros((B, KV, G, S, D), dtype=f32, device=dev)
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((B, KV, G, S), dtype=f32, device=dev)
+    for k0 in range(0, T, TC_KV_BLOCK):
+        kpos = torch.arange(k0, min(k0 + TC_KV_BLOCK, T), device=dev)
+        keep = _block_bias(qpos, kpos, T, causal, window, chunk) == 0
+        if not bool(keep.any()):
+            continue  # the kernel skips the tile too
+        kt = k[:, k0:k0 + TC_KV_BLOCK].to(f32)
+        vt = v[:, k0:k0 + TC_KV_BLOCK].to(f32)
+        s = torch.einsum("bskgd,btkd->bkgst", qf, kt) * scale2.to(dev)
+        s = torch.where(keep, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(torch.bfloat16).to(f32), vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
 def decode_attention_reference(
     q: torch.Tensor,        # (B, H, D) single new token
     k_cache: torch.Tensor,  # (B, T, KV, D)
@@ -260,6 +315,73 @@ def ssd_reference(
 
     y = (y_diag + y_off).reshape(Bsz, L, H, P)
     return y.to(x.dtype), carry
+
+
+def ssd_chunked_reference(
+    x: torch.Tensor,    # (B, L, H, P)
+    dt: torch.Tensor,   # (B, L, H)
+    A: torch.Tensor,    # (H,)
+    Bm: torch.Tensor,   # (B, L, G, N)
+    Cm: torch.Tensor,   # (B, L, G, N)
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of the bf16 SSD kernel (``csrc/ssd_scan_sm90.cu``),
+    step by step: (1) cs, the within-chunk cumulative sum of ``dt * A`` in
+    order in fp32; (2) ``CB = C Bᵀ`` once per group; (3) each chunk's own
+    state ``Σ_j a_j ⊗ B_j`` with ``a_j = x_j · exp(cs_end - cs_j) · dt_j``
+    split into bf16 hi + lo; (4) the state entering each chunk, carried in
+    fp32 and rounded to bf16; (5) ``y = exp(cs_i) (C_i · S_in) + M x`` with
+    ``M = bf16((CB · exp(cs_i - cs_j)) · dt_j)`` on the causal half, y
+    rounded once.  Returns ``(y in x's dtype, final state fp32)``."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if chunk <= 0 or L % chunk:
+        raise ValueError(f"ssd: sequence length {L} is not a multiple of chunk {chunk}")
+    nc, rep = L // chunk, H // G
+    f32, bf16 = torch.float32, torch.bfloat16
+    x_ = x.reshape(Bsz, nc, chunk, H, P).to(f32)
+    dt_ = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    B_ = Bm.reshape(Bsz, nc, chunk, G, N).to(f32)
+    C_ = Cm.reshape(Bsz, nc, chunk, G, N).to(f32)
+
+    dA = dt_ * A.to(f32)
+    cs = torch.empty_like(dA)                                # (B, nc, c, H)
+    run = torch.zeros_like(dA[:, :, 0])
+    for i in range(chunk):
+        run = run + dA[:, :, i]
+        cs[:, :, i] = run
+
+    CB = torch.einsum("bzign,bzjgn->bzgij", C_, B_)          # (B, nc, G, c, c)
+
+    a = x_ * (torch.exp(cs[:, :, -1:] - cs) * dt_)[..., None]  # (B, nc, c, H, P)
+    hi = a.to(bf16).to(f32)
+    lo = (a - hi).to(bf16).to(f32)
+    Bh = torch.repeat_interleave(B_, rep, dim=3)             # (B, nc, c, H, N)
+    states = (torch.einsum("bzjhp,bzjhn->bzhpn", hi, Bh)
+              + torch.einsum("bzjhp,bzjhn->bzhpn", lo, Bh))
+
+    decay = torch.exp(cs[:, :, -1])                          # (B, nc, H)
+    carry = (initial_state.to(f32) if initial_state is not None
+             else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
+    s_in = []
+    for z in range(nc):
+        s_in.append(carry.to(bf16).to(f32))
+        carry = carry * decay[:, z, :, None, None] + states[:, z]
+    s_in = torch.stack(s_in, dim=1)                          # (B, nc, H, P, N)
+
+    Ch = torch.repeat_interleave(C_, rep, dim=3)             # (B, nc, c, H, N)
+    y_off = torch.einsum("bzihn,bzhpn->bzihp", Ch, s_in) * torch.exp(cs)[..., None]
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[None, None, None]
+    csh = cs.permute(0, 1, 3, 2)                             # (B, nc, H, c)
+    seg = torch.where(causal, csh[..., :, None] - csh[..., None, :], 0.0)
+    CBh = torch.repeat_interleave(CB, rep, dim=2)            # (B, nc, H, c, c)
+    M = (CBh * torch.exp(seg)) * dt_.permute(0, 1, 3, 2)[..., None, :]
+    M = torch.where(causal, M, 0.0).to(bf16).to(f32)
+    y = y_off + torch.einsum("bzhij,bzjhp->bzihp", M, x_)
+    return y.reshape(Bsz, L, H, P).to(x.dtype), carry
 
 
 def ssd_decode_step(

@@ -1,16 +1,28 @@
 """Mamba-2 SSD scan, forward: the chunked state-space duality of
-arXiv:2405.21060, fp32 inside.
+arXiv:2405.21060.
 
-Replaces ``src/repro/kernels/ssd_scan.py::ssd_pallas``.  The CUDA source is
-``src/repro_torch/csrc/ssd_scan.cu`` (one block per batch, head and 64-wide
-tile of the head dimension, looping over the chunks in order with the state
-in shared memory), built by ``kernels/_build.py`` at first use and bound
-with ``ctypes``.
+Replaces ``src/repro/kernels/ssd_scan.py::ssd_pallas``.  Two hand-written
+CUDA instances, built by ``kernels/_build.py`` at first use and bound with
+``ctypes``; the dtype of x, B and C picks one:
 
-``ssd_scan`` is the wrapper: on CUDA tensors it launches the kernel (or
-raises), an ``initial_state`` included, which the kernel reads; on CPU
-tensors it runs ``ref.ssd_reference``, the plain PyTorch version.
-``ssd_scan.launches`` counts kernel launches.
+  * bf16: ``src/repro_torch/csrc/ssd_scan_sm90.cu``, the chunk-parallel form
+    on Hopper's tensor cores (five kernels in order: the cumulative sums,
+    C·Bᵀ once per group, each chunk's own state with its left operand split
+    into bf16 hi + lo, the sequential state pass, each chunk's output).  Its
+    arithmetic, rounding for rounding, is ``ref.ssd_chunked_reference``.  It
+    takes chunk in ``TC_CHUNKS``, P a multiple of 64 and N in ``TC_STATES``,
+    and raises on other shapes.  Its 16-byte asynchronous copies need x, B
+    and C with strides that are multiples of 8 elements and 16-byte aligned
+    bases: a view without them is copied to a contiguous tensor first.
+  * fp32: ``src/repro_torch/csrc/ssd_scan.cu``, one block per batch, head and
+    64-wide tile of the head dimension, looping over the chunks in order with
+    the state in shared memory, fp32 FMAs on the CUDA cores.
+
+``ssd_scan`` is the wrapper: on CUDA tensors it launches the instance of
+their dtype (or raises), an ``initial_state`` included, which both read; on
+CPU tensors it runs ``ref.ssd_reference``, the plain PyTorch version.
+``ssd_scan.launches`` counts calls that launched, ``launches_tc`` and
+``launches_fp32`` those of each instance.
 """
 
 from __future__ import annotations
@@ -24,8 +36,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_reference
 
-SOURCE = _build.CudaSource("ssd_scan")
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SOURCE = _build.CudaSource("ssd_scan")          # the fp32 instance
+SOURCE_TC = _build.CudaSource("ssd_scan_sm90")  # the bf16 instance
+_DTYPES = (torch.float32, torch.bfloat16)
+TC_CHUNKS = (64, 128, 256)
+TC_STATES = (64, 128)
 MAX_SMEM_BYTES = 232_448  # what one block may use on the H100 (227 KB)
 
 
@@ -53,6 +68,8 @@ def ssd_scan(
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_tc = 0
+ssd_scan.launches_fp32 = 0
 
 
 def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
@@ -67,14 +84,23 @@ def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
                          f"A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     if chunk <= 0 or L % chunk:
         raise ValueError(f"ssd: sequence length {L} is not a multiple of chunk {chunk}")
-    lib = _library()
-    smem = lib.veer_ssd_scan_smem_bytes(N, chunk)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"ssd_scan kernel: N={N}, chunk={chunk} need {smem} bytes of shared "
-                         f"memory a block, more than {MAX_SMEM_BYTES}")
+    tc = x.dtype == torch.bfloat16
+    if tc and (chunk not in TC_CHUNKS or P % 64 or N not in TC_STATES):
+        raise ValueError(f"ssd_scan bf16 kernel takes chunk in {TC_CHUNKS}, P a multiple of 64 "
+                         f"and N in {TC_STATES}; got chunk={chunk}, P={P}, N={N}")
+    lib = _library_tc() if tc else _library()
+    if not tc:
+        smem = lib.veer_ssd_scan_smem_bytes(N, chunk)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"ssd_scan kernel: N={N}, chunk={chunk} need {smem} bytes of shared "
+                             f"memory a block, more than {MAX_SMEM_BYTES}")
     # the reference casts dt, A and the initial state to fp32 (exact from bf16)
     dt, A = dt.to(torch.float32), A.to(torch.float32).contiguous()
-    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
+    if tc:
+        x, Bm, Cm = (t if _copyable(t) else t.clone(memory_format=torch.contiguous_format)
+                     for t in (x, Bm, Cm))
+    else:
+        x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
     init = None
     if initial_state is not None:
         if initial_state.shape != (Bsz, H, P, N):
@@ -86,15 +112,30 @@ def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
         return y, state.zero_() if init is None else state.copy_(init)
     strides = (ctypes.c_longlong * 15)(
         *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3], *y.stride()[:3])
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            init.data_ptr() if init is not None else None, y.data_ptr(), state.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.veer_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            init.data_ptr() if init is not None else None, y.data_ptr(), state.data_ptr(),
-            _DTYPES[x.dtype], Bsz, L, H, P, G, N, chunk, strides, stream)
+        if tc:
+            sizes = (ctypes.c_longlong * 4)()
+            lib.veer_ssd_scan_tc_scratch(Bsz, L, H, P, G, N, chunk, sizes)
+            scratch = [torch.empty(n, dtype=torch.uint8, device=x.device) for n in sizes]
+            rc = lib.veer_ssd_scan_tc(*ptrs, *(t.data_ptr() for t in scratch),
+                                      Bsz, L, H, P, G, N, chunk, strides, stream)
+        else:
+            rc = lib.veer_ssd_scan(*ptrs, 0, Bsz, L, H, P, G, N, chunk, strides, stream)
     _build.check(lib, rc, "ssd_scan kernel")
     ssd_scan.launches += 1
+    if tc:
+        ssd_scan.launches_tc += 1
+    else:
+        ssd_scan.launches_fp32 += 1
     return y, state
+
+
+def _copyable(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's 16-byte copies can read ``t`` in place."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
 
 
 @functools.lru_cache(maxsize=1)
@@ -109,4 +150,16 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
     ]
     lib.veer_ssd_scan.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_tc() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_TC)
+    lib.veer_ssd_scan_tc_scratch.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.veer_ssd_scan_tc_scratch.restype = None
+    lib.veer_ssd_scan_tc.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    lib.veer_ssd_scan_tc.restype = ctypes.c_int
     return lib

@@ -6,6 +6,11 @@ reference's Pallas kernels in interpret mode and its jnp oracles, on the
 shapes, masks and dtypes of ``tests/test_kernels.py`` and on ``q_offset``
 cases.  Inputs are drawn with numpy from fixed seeds and handed to both.
 
+The mirror of the bf16 tensor-core flash kernel's arithmetic
+(``ref.flash_attention_tc_reference``: P rounded to bf16, the softmax in base
+2) is held to the Pallas kernel and the oracle at the bf16 tolerance, on
+every mask, head dims 16-128 and ragged S and T.
+
 Tolerances: attention fp32 2e-6 and bf16 2e-2 (``tests/test_kernels.py``);
 RMSNorm fp32 1e-6, bf16 one bf16 unit in the last place; decode attention
 fp32 1e-5 (the reference's decode-vs-full tolerance) and bf16 2e-2.
@@ -99,6 +104,32 @@ def test_flash_plain_q_offset(case, dtype):
     got = ref.flash_attention_reference(q, k, v, causal=True, q_block=32, kv_block=64, **case)
     np.testing.assert_allclose(_np(got), _np(pallas), atol=tol, rtol=tol)
     np.testing.assert_allclose(_np(got), _np(oracle), atol=tol, rtol=tol)
+
+
+TC_CASES = {  # (S, T, D, masks) for the tensor-core mirror
+    "causal D16": (256, 256, 16, dict(causal=True)),
+    "causal D32": (128, 128, 32, dict(causal=True)),
+    "window D64": (256, 256, 64, dict(causal=True, window=96)),
+    "chunk D128": (256, 256, 128, dict(causal=True, chunk=64)),
+    "q_offset S<T D64": (100, 300, 64, dict(causal=True, q_offset=200)),
+    "chunk and q_offset D32": (96, 160, 32, dict(causal=True, chunk=32, q_offset=64)),
+    "not causal ragged T D32": (129, 77, 32, dict(causal=False)),
+    "ragged S=T=333 window D16": (333, 333, 16, dict(causal=True, window=100)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_flash_tc_mirror_matches_pallas_and_oracle(name):
+    S, T, D, kw = TC_CASES[name]
+    (jq, jk, jv), (q, k, v) = _both(_qkv(S + T + D, 2, S, T, 4, 2, D), "bf16")
+    got = ref.flash_attention_tc_reference(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    pallas = flash_attention_pallas(jq, jk, jv, q_block=64, kv_block=64, interpret=True, **kw)
+    oracle = jref.attention_reference(jq, jk, jv, **kw)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
+    plain = ref.flash_attention_reference(q, k, v, **kw)
+    np.testing.assert_allclose(_np(got), _np(plain), atol=2e-2, rtol=2e-2)
 
 
 def test_flash_dispatch_on_cpu_runs_the_plain_version():

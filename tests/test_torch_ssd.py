@@ -9,7 +9,12 @@ Inputs are drawn with numpy from fixed seeds and handed to both.
 Tolerances: fp32 1e-5 atol = rtol (what ``tests/test_kernels.py`` holds
 ``ssd_pallas`` to); bf16 x/B/C 2e-2; the sequential decode against the
 chunked scan 1e-4 (``tests/test_kernels.py``); the chunk sizes against each
-other 1e-5.  The kernel itself is held to this plain version on the card by
+other 1e-5.  The mirror of the bf16 tensor-core kernel's arithmetic
+(``ref.ssd_chunked_reference``) is held to the reference and to
+``ssd_pallas`` with bf16 x, B and C at 2e-2 for y and, for the final state,
+1e-4 at chunks of 256 and 1e-5 below (the in-order cumulative sums of
+``dt * A`` reach ~10^2 at 256 and part from the reference's by a few units
+in their last place).  The kernel itself is held to this plain version on the card by
 ``tests/test_torch_llm_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -176,3 +181,33 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(*arrays[:4], arrays[4].to("meta"), chunk=16)
 
+
+TC_SHAPES = [  # (B, L, H, P, G, N, chunk, initial state): the bf16 kernel's chunks
+    (1, 512, 4, 64, 1, 128, 256, False),
+    (1, 512, 4, 64, 1, 64, 256, True),
+    (2, 256, 4, 64, 2, 64, 128, True),
+    (1, 192, 4, 64, 2, 64, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", TC_SHAPES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_chunked_mirror_matches_reference_and_pallas(case):
+    B, L, H, P, G, N, chunk, with_init = case
+    x, dt, A, Bm, Cm = _inputs(L + chunk, B, L, H, P, G, N)
+    init = (np.random.default_rng(chunk).standard_normal((B, H, P, N), dtype=np.float32)
+            if with_init else None)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, Bm, Cm)]
+    jinit = None if init is None else jnp.asarray(init)
+    want = [jref.ssd_reference(jb[0], jnp.asarray(dt), jnp.asarray(A), jb[1], jb[2], chunk=chunk,
+                               initial_state=jinit),
+            ssd_pallas(jb[0], jnp.asarray(dt), jnp.asarray(A), jb[1], jb[2], chunk=chunk,
+                       initial_state=jinit, interpret=True)]
+    tx, tB, tC = _t(x, Bm, Cm, dtype=torch.bfloat16)
+    y, s = ref.ssd_chunked_reference(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC,
+                                     chunk=chunk,
+                                     initial_state=None if init is None else torch.from_numpy(init))
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32 and s.shape == (B, H, P, N)
+    st_tol = 1e-4 if chunk >= 256 else 1e-5
+    for want_y, want_s in want:
+        np.testing.assert_allclose(_np(y), _np(want_y), atol=2e-2, rtol=2e-2)
+        np.testing.assert_allclose(_np(s), _np(want_s), atol=st_tol, rtol=st_tol)
