@@ -16,21 +16,28 @@ Phases (any failure exits non-zero and prints no result):
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
-                 +-1e-12 bands) at n in {0, 1, 7, 1023, 1025, 1M, 16M};
+                 +-1e-12 bands) at n in {0, 1, 7, 1023, 1025, 1M, 16M}, and
+                 at 1025 and 1M over column views at an odd element offset;
                  then programs of 17 columns, 240 atoms, 10 host masks,
-                 a tree nested 100 deep and 40 projected values.
+                 a tree nested 100 deep and 40 projected values.  Each
+                 program's route (plan in the launch's 1 KiB of
+                 parameters, or in device memory) is reported, and every
+                 route's instance must be launched.
                  Tolerance: none.  Masks must be equal; values must be equal
                  bit for bit to numpy (NaN bits too, except where an add
                  has two different NaN operands, whose result numpy itself
                  leaves open: NaN in both there), and to the plain version
                  except for NaN payloads (its NaNs are the card's own).
+                 Timed at 1M and 16M rows: the call's device time (events),
+                 the kernel's own (profiler), a whole call's wall time.
   4. main path   the hot chain (two sources, fused filter + project,
                  two-key left-outer join, classifier, sentiment, dictionary
                  matcher, aggregate, sort, distinct branch) at 1,000,000
                  left-source rows on the numpy and torch planes: every sink
-                 ``tables_identical``, the kernel launched, operators
-                 lowered; then a four-key join that takes the device
-                 sort/searchsorted probe.
+                 ``tables_identical``, the kernel launched, every launch
+                 through a parameter plan, operators lowered; the kernel
+                 timed at f1's and p1's own shapes; then a four-key join
+                 that takes the device sort/searchsorted probe.
   5. reuse       version 1 materialized on the torch plane, version 2 (an
                  edit below the join) served from the store: operators
                  reused, sinks and sink digests equal to a full numpy run.
@@ -78,9 +85,9 @@ Phases (any failure exits non-zero and prints no result):
                  path with SSD chunks of 128 instead of 256 (the same
                  function summed in another order).
   9. report      one JSON line of kernels (launches summed over both
-                 serving paths; flash attention and the SSD scan also by
-                 instance), the card's name and power limit, then the
-                 result line.
+                 serving paths; relational, flash attention and the SSD
+                 scan also by instance), the card's name and power limit,
+                 then the result line.
 
 Options: ``--seed N`` (default 0) seeds the serving phase's weights and
 tokens.
@@ -152,6 +159,8 @@ def _kernel_modules():
 def _reset_counts():
     R, RMS, FA, SS = _kernel_modules()
     R.relational.launches = RMS.rmsnorm.launches = 0
+    for route in R.relational.launches_by_instance:
+        R.relational.launches_by_instance[route] = 0
     for w in (FA.flash_attention, SS.ssd_scan):
         w.launches = w.launches_tc = w.launches_fp32 = 0
 
@@ -168,6 +177,12 @@ def _instance_counts():
     _, _, FA, SS = _kernel_modules()
     return {name: {"tc": w.launches_tc, "fp32": w.launches_fp32}
             for name, w in (("flash_attention", FA.flash_attention), ("ssd_scan", SS.ssd_scan))}
+
+
+def _relational_instances():
+    """Launches of each relational instance, by the route of its plan."""
+    R = _kernel_modules()[0]
+    return dict(R.relational.launches_by_instance)
 
 
 def phase_build():
@@ -317,6 +332,52 @@ def _call_ms(fn, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def _kernel_only_ms(fn, name: str = "relational_kernel", reps: int = 15):
+    """Mean device time of the launches of kernel ``name`` in one call, with
+    the L2 cache flushed before each call, from torch.profiler's entries
+    whose name holds ``name``: the call's other device work (a plan upload)
+    is left out.  None where the profiler saw no such launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total_us = count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and name in ev.key:
+            total_us += ev.device_time_total
+            count += ev.count
+    return total_us / 1e3 / count if count else None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _timed(kind, n, fn, plain, nbytes, flops, route):
+    """One timing record of a relational call: the call's device time
+    (events), the kernel's own (profiler), the host wall time of a whole
+    call, the plain version's device time and the bound."""
+    bound, by = _bound_ms(nbytes, flops)
+    return {"kind": kind, "n": n, "route": route, "ms": _time_ms(fn), "kernel_ms": _kernel_only_ms(fn),
+            "call_ms": _call_ms(fn), "plain_ms": _time_ms(plain), "bound_ms": bound, "bound_by": by}
+
+
+def _log_timed(prefix, t):
+    share = "" if not t["ms"] else f", {100 * t['bound_ms'] / t['ms']:.1f}% of the bound"
+    log(f"{prefix}{t['kind']} n={t['n']} ({t['route']}): call {t['ms']:.4f} ms on the device "
+        f"(events), kernel alone {_fmt_ms(t['kernel_ms'])} (profiler), whole call "
+        f"{t['call_ms']:.4f} ms wall, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}){share}")
+
+
 def _bound_ms(nbytes: float, flops: float, flop_rate: float = FP64_FLOP_PER_S):
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate of their type, whichever is larger."""
@@ -325,85 +386,133 @@ def _bound_ms(nbytes: float, flops: float, flop_rate: float = FP64_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel():
+def _on_card(x, offset: int = 0):
+    """The numpy array ``x`` on the card, as a view ``offset`` elements into
+    a larger buffer (1: a float64 column's address 8 bytes off every 16-byte
+    boundary, read with 8-byte copies)."""
     import numpy as np
     import torch
 
-    from repro_torch.core.predicates import Pred
-    from repro_torch.engine.ops_impl import eval_linexpr, eval_pred
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, dtype=x.dtype), x])).to("cuda")
+    view = buf[offset:]
+    if len(x) and view.data_ptr() % 16 != offset * x.itemsize % 16:
+        fail(f"a view at offset {offset} is not where it should be in its buffer")
+    return view
+
+
+ODD_OFFSET_SIZES = (1025, 1_000_000)
+
+
+def phase_kernel():
     from repro_torch.engine.plane import get_plane
-    from repro_torch.engine.table import Table
     from repro_torch.kernels import relational as R
 
-    np.seterr(all="ignore")  # inf - inf and NaN compares are the point here
     plane = get_plane("torch", device="cuda")
+    _reset_counts()
     preds, proj = _cases()
     max_err = 0.0
     timings = []
     nan_payload_same_as_plain = True
     two_nan_rows = 0
-    for n in KERNEL_SIZES:
-        cols = _adversarial(n, seed=n)
-        t = Table(cols, ["a", "b", "c"])
-        for pi, pred in enumerate(preds):
-            plan = plane._compile_pred(pred)
-            hosts = [torch.from_numpy(eval_pred(Pred.of(a), t)).to("cuda") for a in plan.host_atoms]
-            dcols = [torch.from_numpy(t.cols[c]).to("cuda") for c in plan.columns]
-            kern = R.relational(plan.program, dcols, hosts)
-            plain = R.relational_reference(plan.program, dcols, hosts)
-            want = eval_pred(pred, t)
-            if not torch.equal(kern, plain):
-                fail(f"filter {pi} n={n}: kernel mask differs from the plain version")
-            if not np.array_equal(kern.cpu().numpy(), want):
-                fail(f"filter {pi} n={n}: kernel mask differs from numpy eval_pred")
-            if not np.array_equal(plane.pred_mask(pred, t), want):
-                fail(f"filter {pi} n={n}: pred_mask differs from numpy eval_pred")
-            if n in TIMED_SIZES and pi == 0:
-                nbytes = n * (8 * len(dcols) + len(hosts) + 1)
-                flops = n * 2 * len(plan.program.prods)
-                timings.append(("filter", n, _time_ms(lambda: R.relational(plan.program, dcols, hosts)),
-                                _time_ms(lambda: R.relational_reference(plan.program, dcols, hosts)),
-                                *_bound_ms(nbytes, flops)))
-        pplan = plane._compile_proj(proj)
-        dcols = [torch.from_numpy(t.cols[c]).to("cuda") for c in pplan.columns]
-        kern = R.relational(pplan.program, dcols)
-        plain = R.relational_reference(pplan.program, dcols)
-        for (name, kind, ti) in pplan.items:
-            if kind != "lin":
-                continue
-            expr = dict(proj)[name]
-            want = eval_linexpr(expr, t)
-            got = kern[ti].cpu().numpy()
-            free = _two_nan_rows(expr, t)
-            two_nan_rows += int(free.sum())
-            if not _bits_equal(got, want, free):
-                fail(f"project {name} n={n}: kernel bits differ from numpy eval_linexpr")
-            if not _values_match_plain(kern[ti], plain[ti]):
-                fail(f"project {name} n={n}: kernel differs from the plain version")
-            nan_payload_same_as_plain &= bool(torch.equal(kern[ti].view(torch.int64),
-                                                          plain[ti].view(torch.int64)))
-            ok = ~torch.isnan(kern[ti])
-            if n:
-                diff = (kern[ti][ok] - plain[ti][ok]).abs()
-                diff = diff[torch.isfinite(diff)]
-                if diff.numel():
-                    max_err = max(max_err, float(diff.max()))
-        if n in TIMED_SIZES:
-            nbytes = n * (8 * len(dcols) + 8 * len(pplan.program.terms))
-            flops = n * 2 * len(pplan.program.prods)
-            timings.append(("project", n, _time_ms(lambda: R.relational(pplan.program, dcols)),
-                            _time_ms(lambda: R.relational_reference(pplan.program, dcols)),
-                            *_bound_ms(nbytes, flops)))
-        log(f"kernel: n={n} filters x{len(preds)} + project bit-identical")
+    cases = [(n, 0) for n in KERNEL_SIZES] + [(n, 1) for n in ODD_OFFSET_SIZES]
+    for n, offset in cases:
+        err, rows, same, timed = _check_adversarial(plane, preds, proj, n, offset)
+        max_err = max(max_err, err)
+        two_nan_rows += rows
+        nan_payload_same_as_plain &= same
+        timings += timed
+    log("kernel: routes of the adversarial programs: "
+        + ", ".join(f"filter {i} {R.route(plane._compile_pred(p).program)} "
+                    f"({8 * R.plan_words(plane._compile_pred(p).program)} bytes)"
+                    for i, p in enumerate(preds))
+        + f", project {R.route(plane._compile_proj(proj).program)}")
     large_err, large_two_nan = _check_large_programs(plane)
     max_err = max(max_err, large_err)
+    by_instance = _relational_instances()
+    log(f"kernel: relational launches by instance in this phase: {by_instance}")
+    for route, count in by_instance.items():
+        if count <= 0:
+            fail(f"kernel: the relational instance {route} was never launched")
     log(f"kernel: rows where numpy's NaN bits are left open (two NaN addends): "
         f"{two_nan_rows} adversarial, {large_two_nan} large; NaN in both there")
     log(f"kernel: NaN payloads equal to the plain version's too: {nan_payload_same_as_plain}")
-    for kind, n, ms, plain_ms, bound, by in timings:
-        log(f"kernel time: {kind} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({by})")
+    for t in timings:
+        _log_timed("kernel time: ", t)
     return max_err, timings
+
+
+def _check_adversarial(plane, preds, proj, n: int, offset: int):
+    """The adversarial programs over n rows of columns and host masks placed
+    ``offset`` elements into their buffers: masks equal to the plain version
+    and numpy, values equal bit for bit (see ``_two_nan_rows``); timed at
+    offset 0 and n in TIMED_SIZES.  Returns the largest absolute difference
+    from the plain version over non-NaN values, the rows whose NaN bits
+    numpy leaves open, whether every NaN payload equals the plain
+    version's, and the timing records."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.predicates import Pred
+    from repro_torch.engine.ops_impl import eval_linexpr, eval_pred
+    from repro_torch.engine.table import Table
+    from repro_torch.kernels import relational as R
+
+    np.seterr(all="ignore")  # inf - inf and NaN compares are the point here
+    what = f"n={n}" + (f" at offset {offset}" if offset else "")
+    timed = offset == 0 and n in TIMED_SIZES
+    t = Table(_adversarial(n, seed=n + offset), ["a", "b", "c"])
+    max_err = 0.0
+    two_nan_rows = 0
+    nan_same = True
+    timings = []
+    for pi, pred in enumerate(preds):
+        plan = plane._compile_pred(pred)
+        hosts = [_on_card(eval_pred(Pred.of(a), t), offset) for a in plan.host_atoms]
+        dcols = [_on_card(t.cols[c], offset) for c in plan.columns]
+        kern = R.relational(plan.program, dcols, hosts)
+        plain = R.relational_reference(plan.program, dcols, hosts)
+        want = eval_pred(pred, t)
+        if not torch.equal(kern, plain):
+            fail(f"filter {pi} {what}: kernel mask differs from the plain version")
+        if not np.array_equal(kern.cpu().numpy(), want):
+            fail(f"filter {pi} {what}: kernel mask differs from numpy eval_pred")
+        if offset == 0 and not np.array_equal(plane.pred_mask(pred, t), want):
+            fail(f"filter {pi} {what}: pred_mask differs from numpy eval_pred")
+        if timed and pi == 0:
+            timings.append(_timed(
+                "filter", n, lambda: R.relational(plan.program, dcols, hosts),
+                lambda: R.relational_reference(plan.program, dcols, hosts),
+                n * (8 * len(dcols) + len(hosts) + 1), n * 2 * len(plan.program.prods),
+                R.route(plan.program)))
+    pplan = plane._compile_proj(proj)
+    dcols = [_on_card(t.cols[c], offset) for c in pplan.columns]
+    kern = R.relational(pplan.program, dcols)
+    plain = R.relational_reference(pplan.program, dcols)
+    for (name, kind, ti) in pplan.items:
+        if kind != "lin":
+            continue
+        expr = dict(proj)[name]
+        free = _two_nan_rows(expr, t)
+        two_nan_rows += int(free.sum())
+        if not _bits_equal(kern[ti].cpu().numpy(), eval_linexpr(expr, t), free):
+            fail(f"project {name} {what}: kernel bits differ from numpy eval_linexpr")
+        if not _values_match_plain(kern[ti], plain[ti]):
+            fail(f"project {name} {what}: kernel differs from the plain version")
+        nan_same &= bool(torch.equal(kern[ti].view(torch.int64), plain[ti].view(torch.int64)))
+        ok = ~torch.isnan(kern[ti])
+        if n:
+            diff = (kern[ti][ok] - plain[ti][ok]).abs()
+            diff = diff[torch.isfinite(diff)]
+            if diff.numel():
+                max_err = max(max_err, float(diff.max()))
+    if timed:
+        timings.append(_timed(
+            "project", n, lambda: R.relational(pplan.program, dcols),
+            lambda: R.relational_reference(pplan.program, dcols),
+            n * (8 * len(dcols) + 8 * len(pplan.program.terms)),
+            n * 2 * len(pplan.program.prods), R.route(pplan.program)))
+    log(f"kernel: {what} filters x{len(preds)} + project bit-identical")
+    return max_err, two_nan_rows, nan_same, timings
 
 
 WIDE_SIZES = (1025, 200_000)
@@ -480,12 +589,10 @@ def _check_large_programs(plane) -> float:
             if not np.array_equal(kern.cpu().numpy(), eval_pred(pred, t)):
                 fail(f"large filter {name} n={n}: kernel mask differs from numpy eval_pred")
             if n == WIDE_SIZES[0]:
-                words = len(R._pack(plan.program, dcols, hosts, [kern]))
                 log(f"kernel: large filter {name}: {plan.program.n_cols} columns, "
                     f"{len(plan.program.terms)} atoms, {len(plan.program.prods)} products, "
                     f"{plan.program.n_hosts} host masks, stack depth {plan.program.depth()}, "
-                    f"plan {8 * words} bytes ({'shared' if 8 * words <= 48 * 1024 else 'device'} "
-                    f"memory)")
+                    f"plan {8 * R.plan_words(plan.program)} bytes, route {R.route(plan.program)}")
         pplan = plane._compile_proj(proj)
         dcols = [torch.from_numpy(t.cols[c]).to("cuda") for c in pplan.columns]
         kern = R.relational(pplan.program, dcols)
@@ -502,7 +609,8 @@ def _check_large_programs(plane) -> float:
             diff = diff[torch.isfinite(diff)]
             if diff.numel():
                 max_err = max(max_err, float(diff.max()))
-        log(f"kernel: n={n} large filters x{len(preds)} + {len(proj)}-value project bit-identical")
+        log(f"kernel: n={n} large filters x{len(preds)} + {len(proj)}-value project "
+            f"({R.route(pplan.program)}) bit-identical")
     return max_err, two_nan_rows
 
 
@@ -674,14 +782,18 @@ def phase_main_path():
     res = ExecutionPlan(dag, sources).run()
     t_torch = time.perf_counter() - t0
     launches = _counts()["relational"]
+    by_instance = _relational_instances()
 
     _all_identical(ref, res.results, "hot chain")
     if launches <= 0:
         fail("hot chain: the relational kernel was never launched on the torch plane")
+    if by_instance["device"] or by_instance["param"] != launches:
+        fail(f"hot chain: relational launches did not all take the parameter-plan route: {by_instance}")
     if res.stats.ops_lowered <= 0:
         fail("hot chain: no operator was lowered on the torch plane")
     log(f"main path: hot chain {MAIN_ROWS} rows: numpy {t_numpy:.3f} s, torch {t_torch:.3f} s, "
-        f"{res.stats.ops_lowered} ops lowered, {launches} relational launches, sinks identical")
+        f"{res.stats.ops_lowered} ops lowered, {launches} relational launches {by_instance}, "
+        f"sinks identical")
 
     plane = get_plane("torch", device="cuda")
     run = lambda: execute(dag, sources)  # noqa: E731
@@ -698,20 +810,28 @@ def phase_main_path():
             f"{kinds['copy']:.4f} s, relational kernel {kinds['relational']:.6f} s, "
             f"other {kinds['other']:.4f} s; device idle share {busy['idle_share']:.4f}")
 
-    # the kernel's timing at the main path's own shape: f1 over s1's columns
+    # the kernel's timing at the main path's own shapes: f1 over s1's
+    # columns, then p1 over the rows f1 keeps
     import torch
 
-    f1 = plane._pred_plan(dag.ops["f1"].get("pred"))
+    from repro_torch.engine.ops_impl import eval_pred
+
     s1 = sources["s1"]
-    dcols = [torch.from_numpy(s1.cols[c]).to("cuda") for c in f1.columns]
-    ms = _time_ms(lambda: R.relational(f1.program, dcols))
-    plain_ms = _time_ms(lambda: R.relational_reference(f1.program, dcols))
-    call_ms = _call_ms(lambda: R.relational(f1.program, dcols))
-    bound, by = _bound_ms(len(s1) * (8 * len(dcols) + 1), len(s1) * 2 * len(f1.program.prods))
-    main_shape = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-    log(f"main path: relational kernel at f1's shape ({len(s1)} rows, {len(dcols)} columns): "
-        f"{ms:.4f} ms on the device (a whole wrapper call {call_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    f1 = plane._pred_plan(dag.ops["f1"].get("pred"))
+    p1 = plane._proj_plan(dag.ops["p1"].get("cols"))
+    kept = s1.mask(eval_pred(dag.ops["f1"].get("pred"), s1))
+    fcols = [torch.from_numpy(s1.cols[c]).to("cuda") for c in f1.columns]
+    pcols = [torch.from_numpy(kept.cols[c]).to("cuda") for c in p1.columns]
+    main_shape = _timed("f1", len(s1), lambda: R.relational(f1.program, fcols),
+                        lambda: R.relational_reference(f1.program, fcols),
+                        len(s1) * (8 * len(fcols) + 1), len(s1) * 2 * len(f1.program.prods),
+                        R.route(f1.program))
+    p1_shape = _timed("p1", len(kept), lambda: R.relational(p1.program, pcols),
+                      lambda: R.relational_reference(p1.program, pcols),
+                      len(kept) * 8 * (len(pcols) + len(p1.program.terms)),
+                      len(kept) * 2 * len(p1.program.prods), R.route(p1.program))
+    for t in (main_shape, p1_shape):
+        _log_timed("main path: relational kernel at ", t)
 
     # a four-key join: the combined code range is sparse, so the plane
     # takes the device sort/searchsorted probe
@@ -740,8 +860,8 @@ def phase_main_path():
     _all_identical(execute(jdag, jsrc, plane="numpy"), got, "sparse join")
     log(f"main path: four-key left-outer join {n} x {n // 2} rows through the device probe "
         f"in {t_j:.3f} s, sink identical")
-    return {"launches": launches, "t_numpy": t_numpy, "t_torch": t_torch,
-            "main_shape": main_shape}
+    return {"launches": launches, "instances": by_instance, "t_numpy": t_numpy,
+            "t_torch": t_torch, "main_shape": main_shape, "p1_shape": p1_shape}
 
 
 # -- 5. execute with reuse -----------------------------------------------------
@@ -1516,7 +1636,13 @@ def main() -> int:
         "plain_ms": shape["plain_ms"],
         "bound_ms": shape["bound_ms"],
         "bound_by": shape["bound_by"],
+        # no one PyTorch call rounds each multiply and add on its own in this order
         "library_ms": None,
+        "kernel_only_ms": shape["kernel_ms"],
+        "call_ms": shape["call_ms"],
+        # one instance per plan route; launches on the hot chain's run
+        "instances": [{"instance": route, "launches": count}
+                      for route, count in main["instances"].items()],
     }]
     # launches: the sum over the serving paths, each counted from 0 around its own run
     # flash attention and the SSD scan have two instances: the main path's bf16

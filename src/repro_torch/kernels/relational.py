@@ -19,14 +19,18 @@ A ``RelProgram`` is what the kernel interprets:
     over terms (``ATOM``) and host-evaluated bool masks (``HOST``); empty
     for a value program.
 
-A program has no fixed capacity: the wrapper packs it, with the tensors'
-addresses, into one int64 array (``_pack``) that it uploads beside the
-launch.
+A program has no fixed capacity.  The wrapper packs it, with the tensors'
+addresses, into one int64 array (``_pack``) and sends it by one of two
+routes (``route``, a function of the program alone): in the launch's
+parameters when it fits their 1 KiB (``param``), else uploaded to device
+memory beside the launch (``device``).  Each route is one instance of the
+kernel.
 
 ``relational`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises); on CPU tensors it runs ``relational_reference``, the plain PyTorch
 version, written as float64 ops one at a time.  ``relational.launches``
-counts kernel launches.
+counts kernel launches, and ``relational.launches_by_instance`` counts them
+by route.
 """
 
 from __future__ import annotations
@@ -42,6 +46,11 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_DEPTH = 64  # the kernel's bool stack is one 64-bit register
+
+# plan words the launch's parameters carry (``kParamWords`` of
+# csrc/relational.cu); a larger plan goes through device memory
+PARAM_WORDS = 128
+ROUTES = ("param", "device")
 
 # term codes
 LE, LT, EQ, NE, VALUE = range(5)
@@ -148,6 +157,7 @@ def relational(
 
 
 relational.launches = 0
+relational.launches_by_instance = dict.fromkeys(ROUTES, 0)
 
 
 @functools.lru_cache(maxsize=1)
@@ -163,6 +173,18 @@ def host_default_nan() -> int:
 # header fields of a packed plan, in the order of ``H_*`` in csrc/relational.cu
 _HEADER = ("n_terms", "n_prog", "default_nan", "col", "is_int", "host", "out", "prod",
            "term", "prog")
+
+
+def plan_words(program: RelProgram) -> int:
+    """Length of ``program``'s packed plan in 64-bit words."""
+    return len(_template(program)[0])
+
+
+def route(program: RelProgram) -> str:
+    """How ``program``'s plan reaches the kernel: ``"param"`` when the
+    launch's parameters hold it, else ``"device"``.  A function of the
+    program alone; each route is one instance of the kernel."""
+    return "param" if plan_words(program) <= PARAM_WORDS else "device"
 
 
 @functools.lru_cache(maxsize=256)
@@ -239,15 +261,22 @@ def _launch(
         return result
 
     lib = _library()
+    way = route(program)
+    words = _pack(program, cols, hosts, outs)
     with torch.cuda.device(dev):
-        # pinned, so the upload is queued on the stream like the launch; the
-        # caching host allocator keeps the buffer until the copy has run
-        words = torch.from_numpy(_pack(program, cols, hosts, outs)).pin_memory()
-        plan = words.to(dev, non_blocking=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.veer_relational_launch(plan.data_ptr(), plan.numel(), n, stream)
+        if way == "device":
+            # pinned, so the upload is queued on the stream like the launch;
+            # the caching host allocator keeps the buffer until the copy has run
+            plan = torch.from_numpy(words).pin_memory().to(dev, non_blocking=True)
+            rc = lib.veer_relational_launch_device(plan.data_ptr(), n, len(cols), len(hosts),
+                                                   stream)
+        else:  # the words are copied into the launch's parameters
+            rc = lib.veer_relational_launch_params(words.ctypes.data, len(words), n, len(cols),
+                                                   len(hosts), stream)
     _build.check(lib, rc, "relational kernel")
     relational.launches += 1
+    relational.launches_by_instance[way] += 1
     return result
 
 
@@ -261,10 +290,15 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.veer_relational_header_words.argtypes = []
     lib.veer_relational_header_words.restype = ctypes.c_int
-    lib.veer_relational_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    lib.veer_relational_launch_params.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
-    lib.veer_relational_launch.restype = ctypes.c_int
+    lib.veer_relational_launch_params.restype = ctypes.c_int
+    lib.veer_relational_launch_device.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.veer_relational_launch_device.restype = ctypes.c_int
     if lib.veer_relational_header_words() != len(_HEADER):
         raise RuntimeError(
             "csrc/relational.cu plan header does not match kernels/relational.py"

@@ -10,9 +10,11 @@ then sums and compares) so XLA has nothing to contract into an FMA.  The
 one allowed difference from the JAX kernel is the sign bit of a NaN (see
 ``_same_bits_but_nan_sign``); against numpy even NaN bits must agree.
 
-The CUDA kernel itself runs only on a GPU: its test is in
-``tests/test_torch_isolation.py`` (``cuda`` marker), which imports no JAX so
-that it also runs where JAX is not installed.
+The CUDA kernel itself runs only on a GPU: its tests are in
+``tests/test_torch_relational_cuda.py`` and ``tests/test_torch_isolation.py``
+(``cuda`` marker), which import no JAX so that they also run where JAX is
+not installed.  The CPU tests here also pin what decides the kernel's
+instance (``route``) and the plan layout the CUDA source decodes.
 """
 from fractions import Fraction
 
@@ -277,3 +279,71 @@ def test_pack_lays_out_the_plan_as_the_kernel_reads_it():
     assert terms[:, 0].view(np.float64).tolist() == [0.25, -1.0]
     assert terms[:, 1:].tolist() == [[R.LE, 0, 2], [R.NE, 2, 1]]
     assert w[head["prog"]:].reshape(-1, 2).tolist() == [list(s) for s in program.tree]
+
+
+def _program_of_words(words):
+    """A one-column mask program whose packed plan is ``words`` long: one
+    atom of k products (19 + 2k words), and with a host mask and-ed in
+    (24 + 2k) for an even length."""
+    hosts = 1 - words % 2
+    k = (words - (24 if hosts else 19)) // 2
+    tree = ((R.ATOM, 0), (R.HOST, 0), (R.AND, 0)) if hosts else ((R.ATOM, 0),)
+    program = R.RelProgram(1, ((0, 0.5),) * k, ((0.0, R.LE, 0, k),), tree, hosts)
+    assert R.plan_words(program) == words
+    return program
+
+
+def _chip_smoke():
+    """The repository root's chip_smoke.py as a module (its imports of the
+    port are inside its functions)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("words, want", [(35, "param"), (127, "param"), (128, "param"),
+                                         (129, "device"), (4081, "device")])
+def test_route_follows_the_parameter_capacity(words, want):
+    assert R.route(_program_of_words(words)) == want
+
+
+def test_route_of_the_main_path_and_the_large_programs():
+    """The hot chain's filter rides in the launch's parameters (35 words);
+    the chip check's wide, deep and 240-atom filters and its 40-value
+    projection go through device memory."""
+    smoke = _chip_smoke()
+    plane = TorchPlane(device="cpu")
+    f1 = plane._compile_pred(smoke.hot_chain().ops["f1"].get("pred"))
+    assert (R.plan_words(f1.program), R.route(f1.program)) == (35, "param")
+    preds, proj = smoke._large_programs([f"a{i}" for i in range(17)])
+    got = {name: (8 * R.plan_words(plane._compile_pred(p).program),
+                  R.route(plane._compile_pred(p).program)) for name, p in preds.items()}
+    assert got == {"wide": (14184, "device"), "deep": (9816, "device"),
+                   "huge": (80984, "device")}
+    assert R.route(plane._compile_proj(proj).program) == "device"
+
+
+def test_param_capacity_matches_the_cuda_source():
+    """The wrapper routes by the plan capacity csrc/relational.cu declares
+    (the library itself checks only the header at load)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(R.__file__).resolve().parents[1] / "csrc" / "relational.cu").read_text()
+    words = int(re.search(r"kParamWords = (\d+);", src).group(1))
+    assert R.PARAM_WORDS == words and 8 * words == 1024
+
+
+def test_cpu_calls_count_no_launch_of_any_instance():
+    program = R.RelProgram(1, ((0, 2.0),), ((1.0, R.VALUE, 0, 1),))
+    before = dict(R.relational.launches_by_instance)
+    assert set(before) == set(R.ROUTES) == {"param", "device"}
+    R.relational(program, [torch.arange(5, dtype=torch.float64)])
+    R.relational(_program_of_words(4081), [torch.zeros(3, dtype=torch.float64)],
+                 [torch.ones(3, dtype=torch.bool)])
+    assert R.relational.launches_by_instance == before
