@@ -41,7 +41,18 @@ Phases (any failure exits non-zero and prints no result):
   5. reuse       version 1 materialized on the torch plane, version 2 (an
                  edit below the join) served from the store: operators
                  reused, sinks and sink digests equal to a full numpy run.
-  6. llm-kernels flash attention, RMSNorm and the SSD scan against their
+  6. verify      four successor versions of the hot chain (f1 split in two,
+                 an implied filter spliced in, f1's constant tightened, the
+                 dictionary matcher edited) verified against it with the
+                 Equitas, Spes and UDP EVs: each verdict equal to the
+                 reference package's (``VERIFY_EXPECTED``), each decided
+                 verdict's certificate replayed against the pair, round-
+                 tripped through JSON, and a tampered copy refused; then
+                 both versions executed at 1,000,000 rows on the torch plane
+                 (``sink_results_equal``): equal sinks for every EQ verdict,
+                 and each pair's equality as pinned (``SINKS_EQUAL``); the
+                 relational kernel must launch.  Tolerance: none.
+  7. llm-kernels flash attention, RMSNorm and the SSD scan against their
                  plain PyTorch versions on the card: flash attention at the
                  prefill shape (B=2, S=T=4096, H=32, KV=8, D=128, bf16,
                  causal), at window=1024, chunk=1024, q_offset>0 with S<T,
@@ -62,7 +73,7 @@ Phases (any failure exits non-zero and prints no result):
                  (``MIRROR_ATOL``).  Each kernel is timed at the prefill
                  shape beside its plain version, one PyTorch library call
                  where there is one, and its bound.
-  7. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
+  8. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
                  weights drawn from --seed on the card: ``forward_step`` on
                  2 prompts of 4096 tokens through the kernels (32 flash
                  attention launches, all of the tensor-core instance, and 65
@@ -75,16 +86,16 @@ Phases (any failure exits non-zero and prints no result):
                  against the kernel path's beside a control (the plain path
                  summed in another order), and 64 decode steps against the
                  forward's logits on both paths (see LOGIT_TOL).
-  8. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
+  9. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
                  heads of 64, state 128, vocab 50280), fp32 weights from
                  --seed, after llama3-8b's tensors are freed: the same
-                 steps as phase 7 (64 SSD launches, all of the tensor-core
+                 steps as phase 8 (64 SSD launches, all of the tensor-core
                  instance, and 129 RMSNorm launches per
                  ``forward_step``), the SSD kernel also held to its plain
                  version on every layer's inputs, and the control the plain
                  path with SSD chunks of 128 instead of 256 (the same
                  function summed in another order).
-  9. report      one JSON line of kernels (launches summed over both
+  10. report     one JSON line of kernels (launches summed over both
                  serving paths; relational, flash attention and the SSD
                  scan also by instance), the card's name and power limit,
                  then the result line.
@@ -898,7 +909,102 @@ def phase_reuse():
     return launches
 
 
-# -- 6. the LLM kernels against their plain versions -----------------------------
+# -- 6. verify version pairs, then check each verdict on the card -----------------
+
+# The reference package's verdicts on the four pairs under the three EVs
+# (tests/test_torch_verifier.py holds these constants against it), and whether
+# the two versions' sinks are equal under Def 2.2 on hot_sources' data: the
+# Unknown pairs are decided by execution alone.  Q_const keeps fewer rows
+# where x = 5 and g >= 11; Q_dict changes a column that the aggregate drops.
+VERIFY_EXPECTED = {"split": True, "implied": True, "const": None, "dict": None}
+SINKS_EQUAL = {"split": True, "implied": True, "const": False, "dict": True}
+VERIFY_EVS = ("equitas", "spes", "udp")
+VERDICT_NAMES = {True: "EQ", False: "NEQ", None: "UNKNOWN"}
+
+
+def _splice_after(dag, src_id, op):
+    """``dag`` with ``op`` spliced onto the one out-link of ``src_id``."""
+    from repro_torch.core import dag as D
+
+    link = next(link for link in dag.links if link.src == src_id)
+    out = dag.add_op(op).remove_link(link)
+    return out.add_link(D.Link(src_id, op.id)).add_link(D.Link(op.id, link.dst, link.dst_port))
+
+
+def verify_pairs(P):
+    """The successor versions of the hot chain ``P`` that the verify phase
+    checks: f1's conjunction split into two filters (the linear atom first),
+    an implied filter ``x <= 7`` after f1, f1's constant tightened to
+    ``x <= 4``, and phase 5's edit of the dictionary matcher."""
+    from repro_torch.core import dag as D
+    from repro_torch.core.predicates import Pred
+
+    f1 = P.ops["f1"]
+    cap, lin = f1.get("pred").children  # x <= 5, -g + 2x + 1 <= 0
+    return {
+        "split": _splice_after(P.replace_op(f1.with_props(pred=lin)), "f1",
+                               D.Operator.make("f1x", D.FILTER, pred=cap)),
+        "implied": _splice_after(P, "f1", D.Operator.make("f7", D.FILTER,
+                                                          pred=Pred.cmp("x", "<=", 7))),
+        "const": P.replace_op(f1.with_props(pred=Pred.and_(Pred.cmp("x", "<=", 4), lin))),
+        "dict": P.replace_op(P.ops["dm"].with_props(entries=(1.0, 2.0, 4.0, 8.0, 16.0))),
+    }
+
+
+def phase_verify(card: str):
+    from repro_torch.api import Certificate, VeerConfig, tampered, verify
+    from repro_torch.engine import execute, sink_results_equal
+
+    P = hot_chain()
+    sources = hot_sources(MAIN_ROWS, seed=3)
+    config = VeerConfig(evs=VERIFY_EVS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    execute(P, sources)
+    t_p = time.perf_counter() - t0
+    for name, Q in verify_pairs(P).items():
+        t0 = time.perf_counter()
+        result = verify(P, Q, config)
+        t_verify = time.perf_counter() - t0
+        if result.verdict is not VERIFY_EXPECTED[name]:
+            fail(f"verify: Q_{name} verdict {result.verdict}, pinned {VERIFY_EXPECTED[name]}")
+        cert = result.certificate
+        if result.verdict is None:
+            if cert is not None:
+                fail(f"verify: Q_{name} is Unknown but carries a certificate")
+        else:
+            report = cert.replay(P=P, Q=Q)
+            if not report.ok:
+                fail(f"verify: Q_{name} certificate does not replay: {report.summary()}")
+            back = Certificate.from_json(cert.to_json())
+            if back != cert or back.to_json() != cert.to_json():
+                fail(f"verify: Q_{name} certificate does not round-trip through JSON")
+            if tampered(cert).replay(P=P, Q=Q).ok:
+                fail(f"verify: Q_{name} tampered certificate replays green")
+        t0 = time.perf_counter()
+        execute(Q, sources)
+        t_q = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        equal = sink_results_equal(P, Q, sources)
+        t_check = time.perf_counter() - t0
+        if equal is not SINKS_EQUAL[name]:
+            fail(f"verify: Q_{name} sinks equal {equal} at {MAIN_ROWS} rows, pinned {SINKS_EQUAL[name]}")
+        if result.verdict is True and not equal:
+            fail(f"verify: Q_{name} verdict EQ contradicted by execution")
+        windows = len(cert.windows) if cert is not None else 0
+        log(f"verify: Q_{name} {VERDICT_NAMES[result.verdict]} "
+            f"({cert.kind if cert else 'no certificate'}), {windows} windows, "
+            f"{result.stats.ev_calls} EV calls; verification {1e3 * t_verify:.3f} ms (host); "
+            f"execution at {MAIN_ROWS} rows: P {t_p:.3f} s, Q {t_q:.3f} s; "
+            f"sink_results_equal {equal} in {t_check:.3f} s")
+    launches = _counts()["relational"]
+    if launches <= 0:
+        fail("verify: the relational kernel was never launched")
+    log(f"verify: {launches} relational launches in the phase; on {card}")
+    return launches
+
+
+# -- 7. the LLM kernels against their plain versions -----------------------------
 
 # Logits of the kernel path against the plain path, bf16, atol = rtol: fixed
 # before the first run.  At full depth with random weights the model amplifies
@@ -1154,7 +1260,7 @@ def phase_llm_kernels(seed: int):
             log(f"llm-kernels: rmsnorm at {name} {shape}: kernel {timing['ms']:.4f} ms, "
                 f"plain {timing['plain_ms']:.4f} ms, F.rms_norm {timing['library_ms']:.4f} ms "
                 f"(fp32 weight; {fused_ms:.4f} ms with the weight in x's dtype), "
-                f"bound {bound:.4f} ms ({by}); kernel at {nbytes / timing['ms'] / 1e9:.1f} GB/s")
+                f"bound {bound:.4f} ms ({by}); kernel at {nbytes / timing['ms'] / 1e9:.2f} TB/s")
             if name == "prefill rows":
                 rms_timing = timing
         del x, got, want
@@ -1216,7 +1322,7 @@ def phase_llm_kernels(seed: int):
     return out
 
 
-# -- 7-8. serving, the pieces both serve phases use ---------------------------
+# -- 8-9. serving, the pieces both serve phases use ---------------------------
 
 
 def _sync_s(fn):
@@ -1568,7 +1674,7 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
             "t_prefill": t_prefill, "decode_tps": decode_tps, "peak_bytes": peak}
 
 
-# -- 7. serve llama3-8b ------------------------------------------------------------
+# -- 8. serve llama3-8b ------------------------------------------------------------
 
 
 def phase_serve(seed: int):
@@ -1582,7 +1688,7 @@ def phase_serve(seed: int):
                   "the plain path with attention blocks of 256 against 512")
 
 
-# -- 8. serve mamba2-2.7b ----------------------------------------------------------
+# -- 9. serve mamba2-2.7b ----------------------------------------------------------
 
 
 def phase_serve_mamba(seed: int):
@@ -1621,6 +1727,7 @@ def main() -> int:
     max_err, _ = phase_kernel()
     main = phase_main_path()
     phase_reuse()
+    phase_verify(card)
     llm = phase_llm_kernels(args.seed)
     serve = phase_serve(args.seed)
     mamba = phase_serve_mamba(args.seed)

@@ -1,7 +1,10 @@
-"""Tagged-JSON codec for DAGs, the port's copy of the reference package's
-``api/serialize.py`` (the DAG part; query pairs come with the verifier).
+"""Tagged-JSON codec for the objects certificates must round-trip, the
+port's copy of the reference package's ``api/serialize.py``.
 
-Operator properties — predicates over exact rationals, nested tuples,
+Certificates (``repro_torch.api.certificate``) must survive ``to_json`` /
+``from_json`` with verdicts *and replayability* intact, and a DAG carried
+from the reference package must keep its content digest.  Operator
+properties — predicates over exact rationals, nested tuples,
 dicts — must come back as the same canonical objects, because
 ``Operator.signature()`` (and with it every content digest) hashes them.
 JSON has none of those types, so every non-JSON value is wrapped in a
@@ -18,21 +21,25 @@ single-key ``{"!tag": payload}`` object:
     !pred   Pred                {"kind":..., "atom":..., "children": [...]}
 
 Plain strings, numbers, bools, None and lists pass through untouched.  The
-format is the reference package's, byte for byte, so a DAG encoded by one
-package decodes in the other (``repro_torch.carry``).
+format is the reference package's, byte for byte, so a DAG, a query pair or
+a certificate encoded by one package decodes in the other
+(``repro_torch.carry``).  ``dag_to_dict``/``dag_from_dict`` and
+``query_pair_to_dict``/... build on the value codec for whole DAGs and EV
+query pairs.
 """
 
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 from repro_torch.core.dag import DataflowDAG, Link, Operator
+from repro_torch.core.ev.base import QueryPair
 from repro_torch.core.predicates import LinCmp, LinExpr, NonLinearAtom, Pred, StrEq
 
 
-class FormatError(ValueError):
-    """Raised when a serialized DAG payload is malformed."""
+class CertificateFormatError(ValueError):
+    """Raised when a serialized certificate/DAG payload is malformed."""
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +81,7 @@ def encode_value(v: Any) -> Any:
                 "children": [encode_value(c) for c in v.children],
             }
         }
-    raise FormatError(f"cannot serialize {type(v).__name__}: {v!r}")
+    raise CertificateFormatError(f"cannot serialize {type(v).__name__}: {v!r}")
 
 
 def decode_value(v: Any) -> Any:
@@ -83,7 +90,7 @@ def decode_value(v: Any) -> Any:
     if isinstance(v, list):
         return [decode_value(x) for x in v]
     if not isinstance(v, dict) or len(v) != 1:
-        raise FormatError(f"malformed encoded value: {v!r}")
+        raise CertificateFormatError(f"malformed encoded value: {v!r}")
     tag, payload = next(iter(v.items()))
     if tag == "!frac":
         return Fraction(payload[0], payload[1])
@@ -110,11 +117,11 @@ def decode_value(v: Any) -> Any:
             atom=decode_value(payload["atom"]),
             children=tuple(decode_value(c) for c in payload["children"]),
         )
-    raise FormatError(f"unknown tag {tag!r}")
+    raise CertificateFormatError(f"unknown tag {tag!r}")
 
 
 # ---------------------------------------------------------------------------
-# operators and DAGs
+# operators, DAGs, query pairs
 # ---------------------------------------------------------------------------
 
 
@@ -134,7 +141,7 @@ def operator_from_dict(d: Dict[str, Any]) -> Operator:
             tuple((k, decode_value(v)) for k, v in d["props"]),
         )
     except (KeyError, TypeError) as e:
-        raise FormatError(f"malformed operator: {d!r}") from e
+        raise CertificateFormatError(f"malformed operator: {d!r}") from e
 
 
 def dag_to_dict(dag: DataflowDAG) -> Dict[str, Any]:
@@ -151,4 +158,39 @@ def dag_from_dict(d: Dict[str, Any]) -> DataflowDAG:
             [Link(s, t, p) for s, t, p in d["links"]],
         )
     except (KeyError, TypeError, ValueError) as e:
-        raise FormatError(f"malformed DAG payload: {e}") from e
+        raise CertificateFormatError(f"malformed DAG payload: {e}") from e
+
+
+def query_pair_to_dict(qp: QueryPair) -> Dict[str, Any]:
+    return {
+        "P": dag_to_dict(qp.P),
+        "Q": dag_to_dict(qp.Q),
+        "sink_pairs": [[p, q] for p, q in qp.sink_pairs],
+        "semantics": qp.semantics,
+        "at_version_sink": qp.at_version_sink,
+    }
+
+
+def query_pair_from_dict(d: Dict[str, Any]) -> QueryPair:
+    try:
+        return QueryPair(
+            dag_from_dict(d["P"]),
+            dag_from_dict(d["Q"]),
+            tuple((p, q) for p, q in d["sink_pairs"]),
+            semantics=d["semantics"],
+            at_version_sink=d["at_version_sink"],
+        )
+    except (KeyError, TypeError) as e:
+        raise CertificateFormatError(f"malformed query pair: {e}") from e
+
+
+def ops_to_list(ops: Dict[str, Operator]) -> List[Dict[str, Any]]:
+    return [operator_to_dict(op) for op in ops.values()]
+
+
+def ops_from_list(items: List[Dict[str, Any]]) -> Dict[str, Operator]:
+    out = {}
+    for item in items:
+        op = operator_from_dict(item)
+        out[op.id] = op
+    return out

@@ -1,5 +1,11 @@
-from repro_torch.engine.table import Table, tables_identical
-from repro_torch.engine.executor import ExecResult, ExecStats, ExecutionPlan, execute
+from repro_torch.engine.table import Table, tables_equal, tables_identical
+from repro_torch.engine.executor import (
+    ExecResult,
+    ExecStats,
+    ExecutionPlan,
+    execute,
+    sink_results_equal,
+)
 from repro_torch.engine.store import (
     DiskMaterializationStore,
     InMemoryMaterializationStore,
@@ -15,11 +21,13 @@ __all__ = [
     "available_planes",
     "get_plane",
     "Table",
+    "tables_equal",
     "tables_identical",
     "ExecResult",
     "ExecStats",
     "ExecutionPlan",
     "execute",
+    "sink_results_equal",
     "DiskMaterializationStore",
     "InMemoryMaterializationStore",
     "MaterializationStore",

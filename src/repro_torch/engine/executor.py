@@ -39,7 +39,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 from repro_torch.core import dag as D
 from repro_torch.core.dag import DataflowDAG
 from repro_torch.engine.store import MaterializationStore, table_digest
-from repro_torch.engine.table import Table
+from repro_torch.engine.table import Table, tables_equal
 
 
 @dataclass
@@ -305,3 +305,30 @@ def execute(
     ``device="cpu"`` or ``plane="numpy"``.
     """
     return ExecutionPlan(dag, sources, plane=plane, device=device).run().results
+
+
+def sink_results_equal(
+    P: DataflowDAG,
+    Q: DataflowDAG,
+    sources: Mapping[str, Table],
+    sink_map: Optional[Mapping[str, str]] = None,
+    semantics: str = D.BAG,
+    *,
+    plane: str = "torch",
+    device: str = "cuda",
+) -> bool:
+    """Ground truth for one source instance: execute both versions, compare
+    corresponding sinks under the table semantics (Def 2.2).  Both run on
+    ``plane`` and ``device`` as ``execute`` does, so without CUDA the
+    default raises ``PlaneError``."""
+    rp = execute(P, sources, plane=plane, device=device)
+    rq = execute(Q, {k: v for k, v in sources.items() if k in Q.ops}, plane=plane, device=device)
+    if sink_map is None:
+        if set(rp) != set(rq):
+            return False
+        sink_map = {s: s for s in rp}
+    for sp, sq in sink_map.items():
+        sem = P.ops[sp].get("semantics", semantics) if P.ops[sp].op_type == D.SINK else semantics
+        if not tables_equal(rp[sp], rq[sq], sem):
+            return False
+    return True

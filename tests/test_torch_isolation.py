@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.configs, repro_torch.models.registry, repro_torch.serve.decode\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
+        "import repro_torch.api, repro_torch.core.verifier, repro_torch.core.ev\n"
         "repro_torch.configs.get_arch('llama3-8b')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
