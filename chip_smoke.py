@@ -52,7 +52,26 @@ Phases (any failure exits non-zero and prints no result):
                  (``sink_results_equal``): equal sinks for every EQ verdict,
                  and each pair's equality as pinned (``SINKS_EQUAL``); the
                  relational kernel must launch.  Tolerance: none.
-  7. llm-kernels flash attention, RMSNorm and the SSD scan against their
+  7. chain      version chains through ``VersionChainSession`` on the torch
+                 plane, every version at 1,000,000 rows per source: (a) the
+                 synthetic chain ``make_chain(6, heavy=True)`` (5 branches
+                 of filter, filter, project, classifier, aggregate; 5
+                 sources) in exec_mode full and reuse; (b) the
+                 dominated-filter chain of ``tests/test_delta_exec.py``
+                 (thresholds 80, 74, 77, 71, 90, 62: narrow and widen
+                 edits) in exec_mode delta and full; (c) ``ReuseManager``
+                 on a disk store under ``build/`` with two versions of (a).
+                 Every sink ``tables_identical`` to a numpy-plane run of its
+                 version (the reuse manager's to a full torch-plane run);
+                 every successor EQ, certified, its certificate replayed
+                 against the pair; operators reused in reuse mode and none
+                 in full mode; every delta successor through the delta
+                 tier (ops_delta and delta rows > 0) with the relational
+                 kernel launched inside the delta runs (the delta masks).
+                 Apart from the runs, the boundary mask over 1M rows: the
+                 plane's ``pred_mask`` against ``eval_pred``, the kernel
+                 against its plain version, both timed.  Tolerance: none.
+  8. llm-kernels flash attention, RMSNorm and the SSD scan against their
                  plain PyTorch versions on the card: flash attention at the
                  prefill shape (B=2, S=T=4096, H=32, KV=8, D=128, bf16,
                  causal), at window=1024, chunk=1024, q_offset>0 with S<T,
@@ -73,7 +92,7 @@ Phases (any failure exits non-zero and prints no result):
                  (``MIRROR_ATOL``).  Each kernel is timed at the prefill
                  shape beside its plain version, one PyTorch library call
                  where there is one, and its bound.
-  8. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
+  9. serve       llama3-8b at full width and depth (32 layers, d 4096), fp32
                  weights drawn from --seed on the card: ``forward_step`` on
                  2 prompts of 4096 tokens through the kernels (32 flash
                  attention launches, all of the tensor-core instance, and 65
@@ -86,19 +105,20 @@ Phases (any failure exits non-zero and prints no result):
                  against the kernel path's beside a control (the plain path
                  summed in another order), and 64 decode steps against the
                  forward's logits on both paths (see LOGIT_TOL).
-  9. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
+  10. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
                  heads of 64, state 128, vocab 50280), fp32 weights from
                  --seed, after llama3-8b's tensors are freed: the same
-                 steps as phase 8 (64 SSD launches, all of the tensor-core
+                 steps as phase 9 (64 SSD launches, all of the tensor-core
                  instance, and 129 RMSNorm launches per
                  ``forward_step``), the SSD kernel also held to its plain
                  version on every layer's inputs, and the control the plain
                  path with SSD chunks of 128 instead of 256 (the same
                  function summed in another order).
-  10. report     one JSON line of kernels (launches summed over both
-                 serving paths; relational, flash attention and the SSD
-                 scan also by instance), the card's name and power limit,
-                 then the result line.
+  11. report     one JSON line of kernels (launches summed over both
+                 serving paths, the relational kernel's over phases 4 and
+                 7; relational, flash attention and the SSD scan also by
+                 instance), the card's name and power limit, then the
+                 result line.
 
 Options: ``--seed N`` (default 0) seeds the serving phase's weights and
 tokens.
@@ -1004,7 +1024,318 @@ def phase_verify(card: str):
     return launches
 
 
-# -- 7. the LLM kernels against their plain versions -----------------------------
+# -- 7. version chains: full, reuse and delta execution --------------------------
+
+CHAIN_VERSIONS = 6
+DELTA_THRESHOLDS = (80.0, 74.0, 77.0, 71.0, 90.0, 62.0)  # narrow, widen, narrow, widen, narrow
+
+
+def chain_sources(version, rows: int, seed: int = 0):
+    """The reference's exec benchmark data for the synthetic chain: every
+    source column drawn from the integers 0..6, as float64."""
+    import numpy as np
+
+    from repro_torch.engine.table import Table
+
+    rng = np.random.default_rng(seed)
+    return {sid: Table({c: rng.integers(0, 7, rows).astype(np.float64)
+                        for c in version.ops[sid].get("schema")},
+                       list(version.ops[sid].get("schema")))
+            for sid in sorted(version.sources)}
+
+
+def delta_chain(thresholds=DELTA_THRESHOLDS):
+    """``tests/test_delta_exec.py``'s dominated-filter chain: src -> fe (b <
+    th, the edited filter) -> fa (a > 2) -> fb (b < 50) -> classifier ->
+    aggregate -> sink.  ``fb`` dominates every threshold above 50, so every
+    pair is equivalent, and each edit narrows or widens ``fe``."""
+    from repro_torch.core import dag as D
+    from repro_torch.core.predicates import Pred
+
+    def build(th):
+        ops = [
+            D.Operator.make("src", D.SOURCE, schema=("a", "b", "c")),
+            D.Operator.make("fe", D.FILTER, pred=Pred.cmp("b", "<", th)),
+            D.Operator.make("fa", D.FILTER, pred=Pred.cmp("a", ">", 2)),
+            D.Operator.make("fb", D.FILTER, pred=Pred.cmp("b", "<", 50)),
+            D.Operator.make("cl", D.CLASSIFIER, col="a", out="label", model="m", classes=5),
+            D.Operator.make("agg", D.AGGREGATE, group_by=("label",),
+                            aggs=(("sum", "a", "sa"), ("count", "*", "n"))),
+            D.Operator.make("sink", D.SINK, semantics=D.BAG),
+        ]
+        path = [o.id for o in ops]
+        dag = D.DataflowDAG(ops, [D.Link(a, b) for a, b in zip(path, path[1:])])
+        dag.validate()
+        return dag
+
+    return [build(th) for th in thresholds]
+
+
+def delta_sources(rows: int, seed: int = 0):
+    """``tests/test_delta_exec.py``'s table: a in 0..9, b uniform on [0, 100),
+    c in -5..4."""
+    import numpy as np
+
+    from repro_torch.engine.table import Table
+
+    rng = np.random.default_rng(seed)
+    return {"src": Table({"a": rng.integers(0, 10, rows).astype(np.float64),
+                          "b": rng.uniform(0, 100, rows),
+                          "c": rng.integers(-5, 5, rows).astype(np.float64)}, ["a", "b", "c"])}
+
+
+class _SessionClock:
+    """Host seconds a session spends in its verifier
+    (``session.veer.verify_with_evidence``) and in its store's writes
+    (``session.store.put``: each table's content hash and the write), and
+    the delta runs that raised ``DeltaUnsupported``.  It wraps only public
+    names, adds no synchronization, and every mode gets the same clock, so
+    wall times compare across modes."""
+
+    def __init__(self, session):
+        from repro_torch.engine import delta as delta_engine
+
+        self.verify = self.store = 0.0
+        self.unsupported = 0
+        self._undo = []
+
+        def timed(obj, name, field):
+            fn = getattr(obj, name)
+
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    setattr(self, field, getattr(self, field) + time.perf_counter() - t0)
+            setattr(obj, name, wrapper)
+            self._undo.append((obj, name))
+
+        timed(session.veer, "verify_with_evidence", "verify")
+        timed(session.store, "put", "store")
+        run_delta = delta_engine.execute_delta
+
+        def counted(*a, **kw):
+            try:
+                return run_delta(*a, **kw)
+            except delta_engine.DeltaUnsupported:
+                self.unsupported += 1
+                raise
+        delta_engine.execute_delta = counted
+        self._undo.append((delta_engine, "execute_delta", run_delta))
+
+    def close(self):
+        for entry in reversed(self._undo):
+            if len(entry) == 3:
+                setattr(*entry)
+            else:  # instance attributes: the class's methods show again
+                delattr(*entry)
+
+    def snapshot(self):
+        return {"verify": self.verify, "store": self.store, "unsupported": self.unsupported}
+
+
+def _run_session(tag, mode, versions, sources, store):
+    """Submit every version to a torch-plane session on the card in
+    ``mode``; log each version and return its reports, figures and the
+    relational launches each submit made."""
+    from repro_torch.api import VeerConfig
+    from repro_torch.service import VersionChainSession
+
+    session = VersionChainSession(config=VeerConfig(evs=VERIFY_EVS, exec_mode=mode),
+                                  materialization_store=store)
+    if session.plane != "torch" or session.device != "cuda":
+        fail(f"chain: the session runs on {session.plane}/{session.device}, not torch/cuda")
+    clock = _SessionClock(session)
+    rows = []
+    try:
+        for k, v in enumerate(versions):
+            before, launches = clock.snapshot(), _counts()["relational"]
+            t0 = time.perf_counter()
+            r = session.submit(v, sources=sources)
+            wall = time.perf_counter() - t0
+            after = clock.snapshot()
+            e = r.exec_stats
+            row = {"mode": mode, "report": r, "wall": wall,
+                   "launches": _counts()["relational"] - launches,
+                   **{f: after[f] - before[f] for f in after}}
+            rows.append(row)
+            log(f"chain: {tag} {mode} v{k}: {wall:.3f} s wall, verify {1e3 * row['verify']:.3f} ms, "
+                f"store writes {1e3 * row['store']:.3f} ms (host); ops executed {e.ops_executed} / "
+                f"reused {e.ops_reused} / delta {e.ops_delta} of {e.ops_total}, "
+                f"{e.delta_rows_processed} delta rows, {row['launches']} relational launches, "
+                f"DeltaUnsupported {row['unsupported']}"
+                + (f"; {VERDICT_NAMES[r.verdict]}" if k else ""))
+    finally:
+        clock.close()
+    return rows
+
+
+def _check_certified(tag, mode, versions, rows):
+    """Every successor EQ, certified, and its certificate green against the
+    pair, also after a round trip through JSON.  Logs the host time of
+    deriving each pair's reuse frontier from its certificate (the replay a
+    reuse or delta submit makes), timed here, apart from the session."""
+    from repro_torch.api import Certificate, compute_reuse_frontier
+
+    frontier_ms = []
+    for k in range(1, len(versions)):
+        r = rows[k]["report"]
+        if r.verdict is not True or not r.certified:
+            fail(f"chain: {tag} {mode} v{k} verdict {r.verdict}, certified {r.certified}")
+        for cert in (r.certificate, Certificate.from_json(r.certificate.to_json())):
+            report = cert.replay(P=versions[k - 1], Q=versions[k])
+            if not report.ok:
+                fail(f"chain: {tag} {mode} v{k} certificate does not replay: {report.summary()}")
+        t0 = time.perf_counter()
+        compute_reuse_frontier(r.certificate, versions[k - 1], versions[k])
+        frontier_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"chain: {tag} {mode}: every successor EQ and certified, its certificate green; "
+        f"frontier derivation v1..v{len(versions) - 1} (apart from the session): "
+        + ", ".join(f"{ms:.3f}" for ms in frontier_ms) + " ms")
+
+
+def _identical_to(tag, want, rows):
+    for k, row in enumerate(rows):
+        _all_identical(want[k], row["report"].results, f"chain: {tag} v{k} ({row['mode']})")
+
+
+def phase_chain(card: str):
+    """Version chains on the card through ``VersionChainSession`` at the
+    torch plane: (a) the synthetic heavy chain in full and reuse mode, (b) the
+    dominated-filter chain in delta and full mode, (c) ``ReuseManager`` on a
+    disk store.  Every sink against a numpy-plane run of its version."""
+    import tempfile
+
+    from repro_torch.engine import (
+        InMemoryMaterializationStore,
+        execute,
+        get_plane,
+        tables_identical,
+    )
+    from repro_torch.kernels import relational as R
+    from repro_torch.reuse import ReuseManager
+    from repro_torch.service.synthetic import make_chain
+
+    plane = get_plane("torch", device="cuda")
+    t_phase = time.perf_counter()
+    _reset_counts()
+
+    # (a) the synthetic chain: 5 branches of 1M rows each
+    versions = make_chain(CHAIN_VERSIONS, heavy=True)
+    sources = chain_sources(versions[0], MAIN_ROWS)
+    t0 = time.perf_counter()
+    want = [execute(v, sources, plane="numpy") for v in versions]
+    t_numpy_a = time.perf_counter() - t0
+    runs = {}
+    for mode in ("full", "reuse"):
+        runs[mode] = _run_session("synthetic", mode, versions, sources,
+                                  InMemoryMaterializationStore())
+        _identical_to("synthetic", want, runs[mode])
+        _check_certified("synthetic", mode, versions, runs[mode])
+    for k in range(1, CHAIN_VERSIONS):
+        full, reuse = runs["full"][k]["report"], runs["reuse"][k]["report"]
+        if full.exec_stats.ops_reused != 0:
+            fail(f"chain: synthetic full v{k} reused {full.exec_stats.ops_reused} ops")
+        if reuse.exec_stats.ops_reused <= 0:
+            fail(f"chain: synthetic reuse v{k} reused no operator")
+    log(f"chain: synthetic chain, {len(sources)} sources x {MAIN_ROWS} rows: numpy plane "
+        f"{t_numpy_a:.3f} s for {CHAIN_VERSIONS} versions; sinks identical in both modes")
+
+    # (b) the dominated-filter chain, delta against full
+    dversions = delta_chain()
+    dsources = delta_sources(MAIN_ROWS, seed=4)
+    t0 = time.perf_counter()
+    dwant = [execute(v, dsources, plane="numpy") for v in dversions]
+    t_numpy_b = time.perf_counter() - t0
+    for mode in ("delta", "full"):
+        runs[f"dominated-{mode}"] = _run_session("dominated", mode, dversions, dsources,
+                                                 InMemoryMaterializationStore())
+        _identical_to("dominated", dwant, runs[f"dominated-{mode}"])
+        _check_certified("dominated", mode, dversions, runs[f"dominated-{mode}"])
+    delta_launches = 0
+    for k in range(1, len(dversions)):
+        e = runs["dominated-delta"][k]["report"].exec_stats
+        if e.ops_delta <= 0 or e.delta_rows_processed <= 0:
+            fail(f"chain: dominated delta v{k}: ops_delta {e.ops_delta}, "
+                 f"{e.delta_rows_processed} delta rows")
+        if runs["dominated-full"][k]["report"].exec_stats.ops_delta:
+            fail(f"chain: dominated full v{k} took the delta tier")
+        delta_launches += runs["dominated-delta"][k]["launches"]
+    if delta_launches <= 0:
+        fail("chain: the delta runs launched no relational kernel")
+    log(f"chain: dominated-filter chain {MAIN_ROWS} rows: numpy plane {t_numpy_b:.3f} s for "
+        f"{len(dversions)} versions; delta sinks identical to numpy and to full mode; "
+        f"{delta_launches} relational launches in the delta runs")
+
+    # (c) ReuseManager on a disk store: two versions of the synthetic chain
+    rversions = make_chain(2, heavy=True)
+    rsources = chain_sources(rversions[0], MAIN_ROWS, seed=5)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        rm = ReuseManager(os.path.join(tmp, "store"))
+        if rm.plane != "torch" or rm.device != "cuda":
+            fail(f"chain: the reuse manager runs on {rm.plane}/{rm.device}")
+        walls = []
+        for v in rversions:
+            t0 = time.perf_counter()
+            got = rm.submit(v, rsources)
+            walls.append(time.perf_counter() - t0)
+        # the phase's count ends with the submits: the comparison run below
+        # is the check's own
+        launches = _counts()["relational"]
+        full = execute(rversions[1], rsources)
+        for s, table in full.items():
+            if not tables_identical(table, got[s]):
+                fail(f"chain: reuse manager sink {s} differs from a full torch-plane run")
+        st = rm.stats
+        if st.sink_hits + st.interior_hits < 1:
+            fail(f"chain: the reuse manager served no table: {st}")
+        log(f"chain: reuse manager (disk store) v0 {walls[0]:.3f} s, v1 {walls[1]:.3f} s; "
+            f"sink hits {st.sink_hits}, interior hits {st.interior_hits}, certified reuses "
+            f"{st.certified_reuses}, ops executed {st.ops_executed} / reused {st.ops_reused}, "
+            f"verify {1e3 * st.verify_time:.3f} ms; sinks identical to a full torch-plane run")
+
+    if launches <= 0:
+        fail("chain: the relational kernel was never launched")
+    log(f"chain: {launches} relational launches in the phase; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"on {card}")
+
+    # the delta boundary mask apart from the runs (after the count is read:
+    # these launches are not the chain's): b < 74 over the 1M source rows,
+    # through the plane (column upload, kernel, mask download) against the
+    # host's eval_pred, and the kernel alone against its plain version
+    import numpy as np
+    import torch
+
+    from repro_torch.engine.ops_impl import eval_pred
+
+    pred = dversions[1].ops["fe"].get("pred")
+    table = dsources["src"]
+    if not np.array_equal(np.asarray(plane.pred_mask(pred, table), dtype=bool), eval_pred(pred, table)):
+        fail("chain: the plane's boundary mask differs from eval_pred")
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        np.asarray(plane.pred_mask(pred, table), dtype=bool)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    fe = plane._pred_plan(pred)
+    bcol = [torch.from_numpy(table.cols[c]).to(plane.device) for c in fe.columns]
+    if not torch.equal(R.relational(fe.program, bcol), R.relational_reference(fe.program, bcol)):
+        fail("chain: the boundary mask's kernel differs from its plain version")
+    n = MAIN_ROWS
+    mask_shape = _timed("delta boundary mask", n, lambda: R.relational(fe.program, bcol),
+                        lambda: R.relational_reference(fe.program, bcol),
+                        n * (8 * len(bcol) + 1), n * 2 * len(fe.program.prods), R.route(fe.program))
+    _log_timed("chain: relational kernel at ", mask_shape)
+    log(f"chain: the boundary mask through the plane's pred_mask, {len(bcol)} column(s) of {n} rows "
+        f"uploaded and the mask brought back: {statistics.median(walls):.4f} ms wall (median of 7), "
+        f"equal to eval_pred; the kernel alone equal to its plain version")
+
+    return {"launches": launches, "delta_launches": delta_launches}
+
+
+# -- 8. the LLM kernels against their plain versions -----------------------------
 
 # Logits of the kernel path against the plain path, bf16, atol = rtol: fixed
 # before the first run.  At full depth with random weights the model amplifies
@@ -1322,7 +1653,7 @@ def phase_llm_kernels(seed: int):
     return out
 
 
-# -- 8-9. serving, the pieces both serve phases use ---------------------------
+# -- 9-10. serving, the pieces both serve phases use --------------------------
 
 
 def _sync_s(fn):
@@ -1674,7 +2005,7 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
             "t_prefill": t_prefill, "decode_tps": decode_tps, "peak_bytes": peak}
 
 
-# -- 8. serve llama3-8b ------------------------------------------------------------
+# -- 9. serve llama3-8b ------------------------------------------------------------
 
 
 def phase_serve(seed: int):
@@ -1688,7 +2019,7 @@ def phase_serve(seed: int):
                   "the plain path with attention blocks of 256 against 512")
 
 
-# -- 9. serve mamba2-2.7b ----------------------------------------------------------
+# -- 10. serve mamba2-2.7b ---------------------------------------------------------
 
 
 def phase_serve_mamba(seed: int):
@@ -1728,6 +2059,7 @@ def main() -> int:
     main = phase_main_path()
     phase_reuse()
     phase_verify(card)
+    chain = phase_chain(card)
     llm = phase_llm_kernels(args.seed)
     serve = phase_serve(args.seed)
     mamba = phase_serve_mamba(args.seed)
@@ -1737,7 +2069,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/relational.cu",
         "replaces": "src/repro/kernels/relational.py:111",
-        "launches": main["launches"],
+        # the hot chain's launches plus the chain phase's (its delta masks among them)
+        "launches": main["launches"] + chain["launches"],
         "max_abs_err": max_err,
         "ms": shape["ms"],
         "plain_ms": shape["plain_ms"],

@@ -13,8 +13,10 @@ One import surface for everything a verification caller needs:
 
 It is the port's copy of the reference package's ``api``: certificates and
 configs written by one package read, and replay, in the other.  The reuse
-frontier that the reference also exports here comes with the port's reuse
-layer.
+frontier (``compute_reuse_frontier``: which operators of a certified pair's
+successor may be served from its predecessor's results) is exported here
+too.  The chain service (``repro_torch.service``) and reuse manager
+(``repro_torch.reuse``) are built on this surface.
 """
 
 from repro_torch.api.certificate import (
@@ -29,6 +31,12 @@ from repro_torch.api.certificate import (
 )
 from repro_torch.api.config import ConfigError, VeerConfig
 from repro_torch.api.facade import VerificationResult, verify
+from repro_torch.core.frontier import (
+    FrontierEntry,
+    FrontierError,
+    ReuseFrontier,
+    compute_reuse_frontier,
+)
 from repro_torch.api.registry import (
     DEFAULT_EV_NAMES,
     EVRegistry,
@@ -43,12 +51,16 @@ __all__ = [
     "DEFAULT_EV_NAMES",
     "EVRegistry",
     "EVSpec",
+    "FrontierEntry",
+    "FrontierError",
     "ReplayFailure",
+    "ReuseFrontier",
     "ReplayReport",
     "VeerConfig",
     "VerificationResult",
     "WindowRecord",
     "certificate_from_evidence",
+    "compute_reuse_frontier",
     "default_registry",
     "pair_digest",
     "tampered",

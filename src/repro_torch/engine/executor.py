@@ -25,8 +25,11 @@ source tables, return the sink tables), but is now a thin wrapper over
     measurable and testable.
 
 Seeding policy: ``run`` only ever seeds what the *caller* resolved —
-byte-identity is the caller's contract to uphold.  Digest-equality serving
-(``serve_from_store``) is bit-identical to a full run by construction.
+byte-identity is the caller's contract to uphold.  The certificate-driven
+path (``repro_torch.core.frontier`` + the service layer) seeds exclusively
+exact-tier frontier entries whose digests match, so reuse-aware execution
+is bit-identical to a full run (held against the reference package in
+``tests/test_torch_reuse.py``).
 """
 
 from __future__ import annotations
@@ -49,8 +52,12 @@ class ExecStats:
     ``ops_total`` counts the DAG's operators; every operator lands in
     exactly one of ``ops_executed`` (ran ``execute_op`` or bound a source),
     ``ops_reused`` (result adopted without execution — seeded by the
-    caller or served from the store), or ``ops_skipped`` (never needed:
+    caller or served from the store), ``ops_delta`` (result produced by a
+    delta rule in ``repro_torch.engine.delta`` from the prior version's
+    table plus the edit's row delta), or ``ops_skipped`` (never needed:
     upstream of a reused result, or off the requested outputs).
+    ``delta_rows_processed`` sums the delta rows (inserts + deletes) the
+    delta rules touched — the O(|Δ|) work that replaced full re-execution.
     ``tables_served`` is the subset of reuses fetched from the
     ``MaterializationStore``; ``recompute_time_saved`` sums the recorded
     original compute cost of every served table (``perf_counter``-based,
@@ -61,6 +68,8 @@ class ExecStats:
     ops_executed: int = 0
     ops_reused: int = 0
     ops_skipped: int = 0
+    ops_delta: int = 0
+    delta_rows_processed: int = 0
     plane: str = "numpy"
     ops_lowered: int = 0
     tables_served: int = 0
@@ -280,7 +289,7 @@ class ExecutionPlan:
             stats.peak_live_tables = max(stats.peak_live_tables, len(results))
 
         stats.ops_skipped = (stats.ops_total - stats.ops_executed
-                             - stats.ops_reused)
+                             - stats.ops_reused - stats.ops_delta)
         stats.wall_time = time.perf_counter() - t_start
         return ExecResult(
             results={k: results[k] for k in keep_list},

@@ -39,6 +39,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
         "import repro_torch.api, repro_torch.core.verifier, repro_torch.core.ev\n"
+        "import repro_torch.core.frontier, repro_torch.core.delta, repro_torch.engine.delta\n"
+        "import repro_torch.service, repro_torch.service.synthetic, repro_torch.reuse\n"
         "repro_torch.configs.get_arch('llama3-8b')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
@@ -110,6 +112,36 @@ def test_execute_defaults_to_cuda(monkeypatch):
     assert execute(dag, sources, plane="numpy")["k"].n == 2
 
 
+def test_chain_session_and_reuse_manager_default_to_cuda(monkeypatch, tmp_path):
+    """A session's executing submit, and a reuse manager's submit, run on
+    CUDA unless the CPU is asked for: without CUDA the default refuses, and
+    the refused submit leaves the session where it was."""
+    from repro_torch.engine import InMemoryMaterializationStore
+    from repro_torch.reuse import ReuseManager
+    from repro_torch.service import VersionChainSession
+    from repro_torch.service.synthetic import make_chain
+
+    _no_cuda(monkeypatch)
+    v1, v2 = make_chain(2)
+    rng = np.random.default_rng(0)
+    sources = {sid: Table({c: rng.integers(-2, 7, 50).astype(np.float64) for c in "abc"},
+                          list("abc")) for sid in v1.sources}
+    session = VersionChainSession(materialization_store=InMemoryMaterializationStore())
+    assert session.plane == "torch" and session.device == "cuda"
+    with pytest.raises(PlaneError, match="device='cpu'"):
+        session.submit(v1, sources=sources)
+    assert session.version_count == 0
+    assert session.submit(v1) is None  # verifying needs no device
+    assert session.submit(v2).verdict is True
+    with pytest.raises(PlaneError, match="device='cpu'"):
+        ReuseManager(str(tmp_path / "store")).submit(v1, sources)
+    on_cpu = VersionChainSession(materialization_store=InMemoryMaterializationStore(),
+                                 device="cpu")
+    assert on_cpu.submit(v1, sources=sources).exec_stats.plane == "torch"
+    assert on_cpu.submit(v2, sources=sources).exec_stats.ops_reused > 0
+    assert ReuseManager(str(tmp_path / "cpu"), device="cpu").submit(v1, sources)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The kernel on the card against its plain version on the host: masks
@@ -144,3 +176,41 @@ def test_cuda_kernel_matches_plain_version():
         got = R.relational(jplan.program, [x.cuda() for x in dcols])
         for g, w in zip(got, R.relational(jplan.program, dcols)):
             assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_delta_chain_masks_run_the_kernel():
+    """A dominated-filter chain in delta mode on the card: every sink equal
+    to the numpy plane's, every successor through the delta tier, and the
+    relational kernel launched by the delta runs (their filter masks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    from repro_torch.api import VeerConfig
+    from repro_torch.engine import InMemoryMaterializationStore, tables_identical
+    from repro_torch.service import VersionChainSession
+
+    def version(th):
+        ops = [D.Operator.make("src", D.SOURCE, schema=("a", "b")),
+               D.Operator.make("fe", D.FILTER, pred=Pred.cmp("b", "<", th)),
+               D.Operator.make("fa", D.FILTER, pred=Pred.cmp("a", ">", 2)),
+               D.Operator.make("fb", D.FILTER, pred=Pred.cmp("b", "<", 50)),
+               D.Operator.make("sink", D.SINK, semantics=D.BAG)]
+        path = [o.id for o in ops]
+        return D.DataflowDAG(ops, [D.Link(x, y) for x, y in zip(path, path[1:])])
+
+    rng = np.random.default_rng(0)
+    n = 200_000
+    sources = {"src": Table({"a": rng.integers(0, 10, n).astype(np.float64),
+                             "b": rng.uniform(0, 100, n)}, ["a", "b"])}
+    session = VersionChainSession(config=VeerConfig(exec_mode="delta"),
+                                  materialization_store=InMemoryMaterializationStore())
+    for k, th in enumerate((80.0, 74.0, 90.0)):
+        before = R.relational.launches
+        report = session.submit(version(th), sources=sources)
+        want = execute(version(th), sources, plane="numpy")
+        assert all(tables_identical(want[s], report.results[s]) for s in want)
+        if k:
+            assert report.verdict is True
+            assert report.exec_stats.ops_delta > 0
+            assert R.relational.launches > before
+
