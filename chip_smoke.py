@@ -71,6 +71,33 @@ Phases (any failure exits non-zero and prints no result):
                  Apart from the runs, the boundary mask over 1M rows: the
                  plane's ``pred_mask`` against ``eval_pred``, the kernel
                  against its plain version, both timed.  Tolerance: none.
+  6b. verify-corpus a seeded corpus of the port's ``SessionGenerator``
+                 (``smoke_config(0)`` cut to 4 of its 8 sessions: 100 pairs
+                 over the W1-W8 shapes) verified under the full roster
+                 (Equitas, Spes, UDP and the traced EV), unguided and with
+                 ``guidance="model"``: every decided verdict's certificate
+                 replayed, no equivalent-by-construction pair NEQ, guided
+                 and unguided never disagreeing where both decide, and the
+                 traced EV asked.  Logs the verification time per pair,
+                 each EV's checks and seconds, and the decompositions
+                 explored to the first certificate, guided and unguided.
+  7b. service   phase 7's chains through (a) a ``VerificationService`` of
+                 3 threads and (b) a ``VerificationFleet`` of 2 worker
+                 processes on the file tier (under ``build/``), both on
+                 ``device="cuda"`` with ``exec_mode="delta"``, the fleet
+                 started after every earlier phase used the card in this
+                 process: two clients run the synthetic chain (its edits
+                 are not delta-amenable: the reuse path), one the
+                 dominated-filter chain (the delta tier), 1,000,000 rows a
+                 source.  Every sink ``tables_identical`` to phase 7's
+                 in-process run of the version, every successor EQ with a
+                 certificate that replays, relational launches in the
+                 service, and in each fleet worker that executed (its
+                 drain stats' ``relational_launches``).  Logs per-client
+                 submit-to-result times, the service's and the fleet's wall
+                 times, the bytes and seconds of pickling each submit's
+                 message (measured apart from the fleet) and the file
+                 tier's payload writes (the workers' own clocks).
   8. llm-kernels flash attention, RMSNorm and the SSD scan against their
                  plain PyTorch versions on the card: flash attention at the
                  prefill shape (B=2, S=T=4096, H=32, KV=8, D=128, bf16,
@@ -115,8 +142,8 @@ Phases (any failure exits non-zero and prints no result):
                  path with SSD chunks of 128 instead of 256 (the same
                  function summed in another order).
   11. report     one JSON line of kernels (launches summed over both
-                 serving paths, the relational kernel's over phases 4 and
-                 7; relational, flash attention and the SSD scan also by
+                 serving paths, the relational kernel's over phases 4, 7
+                 and 7b's service; relational, flash attention and the SSD scan also by
                  instance), the card's name and power limit, then the
                  result line.
 
@@ -1332,7 +1359,288 @@ def phase_chain(card: str):
         f"uploaded and the mask brought back: {statistics.median(walls):.4f} ms wall (median of 7), "
         f"equal to eval_pred; the kernel alone equal to its plain version")
 
-    return {"launches": launches, "delta_launches": delta_launches}
+    # what phase 7b holds the service and the fleet to: (a) in reuse mode and
+    # (b) in delta mode, each version's sinks from this in-process run
+    served = {
+        "synthetic": (versions, sources, [row["report"].results for row in runs["reuse"]]),
+        "dominated": (dversions, dsources,
+                      [row["report"].results for row in runs["dominated-delta"]]),
+    }
+    return {"launches": launches, "delta_launches": delta_launches, "served": served}
+
+
+# -- 6b. a SessionGenerator corpus under the full roster, guided and not ----------
+
+CORPUS_SESSIONS = 4  # of smoke_config(0)'s 8: 100 pairs, not 200
+
+
+def _timed_evs(ev_classes, table):
+    """Count and time every ``check`` of the EV classes (class attributes,
+    restored by the returned function)."""
+    undo = []
+    for cls in ev_classes:
+        orig = cls.check
+
+        def check(self, qp, _orig=orig):
+            t0 = time.perf_counter()
+            try:
+                return _orig(self, qp)
+            finally:
+                row = table.setdefault(self.name, [0, 0.0])
+                row[0] += 1
+                row[1] += time.perf_counter() - t0
+        cls.check = check
+        undo.append((cls, orig))
+
+    def restore():
+        for cls, orig in undo:
+            cls.check = orig
+    return restore
+
+
+def phase_verify_corpus(card: str):
+    """A seeded corpus of the port's ``SessionGenerator`` (``smoke_config(0)``,
+    cut to ``CORPUS_SESSIONS`` sessions) verified on the card's host under
+    the full four-EV roster, unguided and with ``guidance="model"``."""
+    import statistics as st
+
+    from repro_torch.api import DEFAULT_EV_NAMES, VeerConfig, default_registry, verify
+    from repro_torch.workload import EXPECTED_EQ, SessionGenerator, smoke_config
+
+    cfg = smoke_config(0).replace(sessions=CORPUS_SESSIONS, clients=CORPUS_SESSIONS)
+    pairs = [(s.versions[p.index - 1], s.versions[p.index], p)
+             for s in SessionGenerator(cfg).generate() for p in s.pairs]
+    if DEFAULT_EV_NAMES != ("equitas", "spes", "udp", "jaxpr"):
+        fail(f"verify-corpus: the roster is {DEFAULT_EV_NAMES}")
+    ev_classes = {type(ev) for ev in default_registry().build()}
+    out = {}
+    for guidance in ("none", "model"):
+        config = VeerConfig(max_decompositions=cfg.max_decompositions, guidance=guidance)
+        per_ev = {}
+        restore = _timed_evs(ev_classes, per_ev)
+        walls, results = [], []
+        try:
+            for P, Q, planned in pairs:
+                t0 = time.perf_counter()
+                results.append(verify(P, Q, config, mapping=planned.mapping))
+                walls.append(time.perf_counter() - t0)
+        finally:
+            restore()
+        for (P, Q, planned), r in zip(pairs, results):
+            if r.verdict is not None and not r.certificate.replay(P=P, Q=Q).ok:
+                fail(f"verify-corpus: {guidance} pair {planned.index} certificate does not replay")
+            if planned.expected == EXPECTED_EQ and r.verdict is False:
+                fail(f"verify-corpus: a {planned.kind} pair judged NEQ ({guidance})")
+        verdicts = {name: sum(r.verdict is v for r in results) for v, name in VERDICT_NAMES.items()}
+        firsts = [r.stats.decompositions_to_first_certificate for r in results]
+        out[guidance] = {"results": results, "firsts": firsts}
+        log(f"verify-corpus: {guidance}: {len(pairs)} pairs {verdicts}; verification per pair "
+            f"median {1e3 * st.median(walls):.3f} ms, mean {1e3 * st.mean(walls):.3f}, max "
+            f"{1e3 * max(walls):.3f} ms, total {sum(walls):.3f} s (host); EV calls "
+            f"{sum(r.stats.ev_calls for r in results)}, ev_time "
+            f"{sum(r.stats.ev_time for r in results):.3f} s")
+        for name in DEFAULT_EV_NAMES:
+            calls, secs = per_ev.get(name, (0, 0.0))
+            log(f"verify-corpus: {guidance}: EV {name}: {calls} checks, {secs:.3f} s"
+                + (f", {1e3 * secs / calls:.3f} ms a check" if calls else ""))
+        if not per_ev.get("jaxpr", (0,))[0]:
+            fail(f"verify-corpus: the traced EV was never asked ({guidance})")
+    for (P, Q, planned), u, g in zip(pairs, out["none"]["results"], out["model"]["results"]):
+        if None not in (u.verdict, g.verdict) and u.verdict is not g.verdict:
+            fail(f"verify-corpus: guidance flipped pair {planned.index}: {u.verdict} vs {g.verdict}")
+    both = [(u, g) for u, g in zip(out["none"]["firsts"], out["model"]["firsts"])
+            if u is not None and g is not None]
+    log(f"verify-corpus: decompositions explored to the first certificate over the "
+        f"{len(both)} pairs both certified by search: unguided {sum(u for u, _ in both)} "
+        f"(median {st.median(u for u, _ in both) if both else 0}), guided "
+        f"{sum(g for _, g in both)} (median {st.median(g for _, g in both) if both else 0}); "
+        f"on {card}")
+
+
+# -- 7b. the verification service and fleet on the card ---------------------------
+
+SERVICE_THREADS = 3
+
+
+def _shard_clients(first_versions):
+    """Client ids for the service and the fleet: one per chain of
+    ``first_versions`` (name -> first version), picked so that the fleet's
+    ring puts the first two on different workers."""
+    from repro_torch.service import ConsistentHashRing, shard_key
+
+    ring = ConsistentHashRing(2)
+    names, taken = {}, []
+    for tag, v0 in first_versions.items():
+        for i in range(256):
+            cid = f"{tag}-{i}"
+            shard = ring.node(shard_key(cid, v0))
+            if len(taken) == 1 and shard == taken[0]:
+                continue  # the second client goes to the other worker
+            names[cid] = (tag, shard)
+            taken.append(shard)
+            break
+    if len(set(taken[:2])) != 2:
+        fail("service: no client ids spread over both workers")
+    return names
+
+
+def _check_served(where, clients, futures, served):
+    """Every sink identical to phase 7's in-process run of the version, and
+    every successor EQ with a certificate that replays."""
+    from repro_torch.engine import tables_identical
+
+    for cid, (tag, _) in clients.items():
+        versions, _, want = served[tag]
+        for k, f in enumerate(futures[cid]):
+            r = f.result(timeout=600)
+            for s, table in want[k].items():
+                if not tables_identical(table, r.results[s]):
+                    fail(f"service: {where} {cid} v{k} sink {s} differs from phase 7's run")
+            if k == 0:
+                continue
+            if r.verdict is not True or r.certificate is None:
+                fail(f"service: {where} {cid} v{k} verdict {r.verdict}, certificate {r.certificate}")
+            if not r.certificate.replay(P=versions[k - 1], Q=versions[k]).ok:
+                fail(f"service: {where} {cid} v{k} certificate does not replay")
+            e = r.exec_stats
+            if tag == "dominated" and e.ops_delta <= 0:
+                fail(f"service: {where} {cid} v{k} did not take the delta tier")
+            if tag == "synthetic" and (e.ops_delta or not (e.ops_reused or r.reused)):
+                fail(f"service: {where} {cid} v{k}: ops_delta {e.ops_delta}, "
+                     f"ops_reused {e.ops_reused} (reuse mode expected)")
+
+
+def _submit_round_robin(svc, clients, served, latencies):
+    futures = {cid: [] for cid in clients}
+    depth = max(len(served[tag][0]) for tag, _ in clients.values())
+    for k in range(depth):
+        for cid, (tag, _) in clients.items():
+            versions, sources, _ = served[tag]
+            if k >= len(versions):
+                continue
+            t0 = time.perf_counter()
+            f = svc.submit(cid, versions[k], sources=sources, timeout=600)
+            f.add_done_callback(
+                lambda _f, cid=cid, k=k, t0=t0: latencies.__setitem__((cid, k), time.perf_counter() - t0))
+            futures[cid].append(f)
+    return futures
+
+
+def _log_latencies(where, clients, latencies):
+    for cid in clients:
+        row = [latencies[key] for key in sorted(k for k in latencies if k[0] == cid)]
+        log(f"service: {where} {cid}: submit to result per version "
+            + ", ".join(f"{x:.3f}" for x in row) + " s")
+
+
+def phase_service(card: str, served):
+    """(a) ``VerificationService`` threads and (b) a 2-worker
+    ``VerificationFleet`` on the file tier, both on ``device="cuda"``,
+    serving two clients of phase 7's synthetic chain and one of its
+    dominated-filter chain at 1,000,000 rows a source."""
+    import shutil
+    import tempfile
+    from multiprocessing.reduction import ForkingPickler
+
+    from repro_torch.api import VeerConfig
+    from repro_torch.engine import InMemoryMaterializationStore
+    from repro_torch.service import VerificationFleet, VerificationService
+
+    t_phase = time.perf_counter()
+    # exec_mode "delta": the dominated chain's edits take the delta tier; the
+    # synthetic chain's are not delta-amenable and run the seeded reuse path
+    config = VeerConfig(evs=VERIFY_EVS, exec_mode="delta")
+    clients = _shard_clients({"synthetic": served["synthetic"][0][0],
+                              "synthetic2": served["synthetic"][0][0],
+                              "dominated": served["dominated"][0][0]})
+    clients = {cid: ("synthetic" if tag.startswith("synthetic") else tag, shard)
+               for cid, (tag, shard) in clients.items()}
+
+    # (a) the service: threads of this process, one CUDA context
+    _reset_counts()
+    latencies = {}
+    t0 = time.perf_counter()
+    with VerificationService(config=config, workers=SERVICE_THREADS, device="cuda",
+                             materialization_store=InMemoryMaterializationStore()) as svc:
+        futures = _submit_round_robin(svc, clients, served, latencies)
+        report = svc.drain()
+    t_service = time.perf_counter() - t0
+    launches = _counts()["relational"]
+    if report.errors:
+        fail(f"service: the service reported errors: {report.errors}")
+    _check_served("service", clients, futures, served)
+    if launches <= 0:
+        fail("service: the service's sessions launched no relational kernel")
+    _log_latencies("service", clients, latencies)
+    log(f"service: VerificationService, {SERVICE_THREADS} threads, {len(clients)} clients: "
+        f"{t_service:.3f} s wall, {launches} relational launches, {report.reused_pairs} pairs "
+        f"reused; every sink identical to phase 7's, every certificate replayed")
+
+    # what crossing into a worker costs: each submit's message pickled as the
+    # fleet's queue pickles it, and unpickled, measured apart from the fleet;
+    # an unpickled table is a new object, so a worker hashes its sources
+    # again (table_digest memoizes per object): that too, once per message
+    from repro_torch.engine.store import table_digest
+
+    pickle_s = unpickle_s = pickle_mb = rehash_s = 0.0
+    for cid, (tag, _) in clients.items():
+        versions, sources, _ = served[tag]
+        for k, v in enumerate(versions):
+            t1 = time.perf_counter()
+            blob = ForkingPickler.dumps(("job", k, cid, v, None, sources))
+            t2 = time.perf_counter()
+            msg = ForkingPickler.loads(blob)
+            t3 = time.perf_counter()
+            for table in msg[5].values():
+                table_digest(table)
+            rehash_s += time.perf_counter() - t3
+            unpickle_s += t3 - t2
+            pickle_s += t2 - t1
+            pickle_mb += len(blob) / 1e6
+            del blob, msg
+
+    # (b) the fleet: two worker processes, each with its own CUDA context,
+    # started after every earlier phase has used the card in this process
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tier_dir = tempfile.mkdtemp(prefix="service-tier-", dir=os.path.join(ROOT, "build"))
+    latencies = {}
+    try:
+        t0 = time.perf_counter()
+        fleet = VerificationFleet(2, config=config.replace(shared_tier="remote", tier_dir=tier_dir),
+                                  device="cuda")
+        try:
+            futures = _submit_round_robin(fleet, clients, served, latencies)
+            freport = fleet.drain()
+            t_fleet = time.perf_counter() - t0
+        finally:
+            fleet.close()
+        t_close = time.perf_counter() - t0 - t_fleet
+        if freport.errors:
+            fail(f"service: the fleet reported errors: {freport.errors}")
+        _check_served("fleet", clients, futures, served)
+        per_worker = [ws["relational_launches"] if ws else None for ws in freport.worker_stats]
+        for cid, (_, shard) in clients.items():
+            if not per_worker[shard]:
+                fail(f"service: fleet worker {shard} executed {cid} but reports "
+                     f"{per_worker[shard]} relational launches")
+        _log_latencies("fleet", clients, latencies)
+        ts = freport.tier_stats
+        log(f"service: VerificationFleet, 2 workers ({fleet._ctx.get_start_method()}), file tier: "
+            f"{t_fleet:.3f} s wall to "
+            f"the drain, close {t_close:.3f} s; relational launches per worker {per_worker}; "
+            f"{freport.recoveries} recoveries; pairs served by the tier "
+            f"{freport.pair_cache_stats.get('tier_hits', 0)}, tables by the tier "
+            f"{freport.store_stats.get('tier_hits', 0)}")
+        log(f"service: crossing into the workers: {pickle_mb:.1f} MB pickled over "
+            f"{sum(len(served[t][0]) for t, _ in clients.values())} submits, {pickle_s:.3f} s to "
+            f"pickle, {unpickle_s:.3f} s to unpickle and {rehash_s:.3f} s to hash the unpickled "
+            f"sources again (measured apart from the fleet); tier "
+            f"payload writes {ts.get('payload_bytes_written', 0) / 1e6:.1f} MB in "
+            f"{ts.get('payload_write_seconds', 0.0):.3f} s (the workers' own clocks)")
+    finally:
+        shutil.rmtree(tier_dir, ignore_errors=True)
+    log(f"service: phase {time.perf_counter() - t_phase:.1f} s; on {card}")
+    return {"launches": launches, "fleet_launches": sum(x or 0 for x in per_worker)}
 
 
 # -- 8. the LLM kernels against their plain versions -----------------------------
@@ -2059,7 +2367,14 @@ def main() -> int:
     main = phase_main_path()
     phase_reuse()
     phase_verify(card)
+    phase_verify_corpus(card)
     chain = phase_chain(card)
+    service = phase_service(card, chain.pop("served"))
+    # the fleet's forkserver and resource tracker would otherwise outlive it
+    # until this process exits: the script leaves nothing running behind it
+    from repro_torch.service import stop_helper_processes
+
+    stop_helper_processes()
     llm = phase_llm_kernels(args.seed)
     serve = phase_serve(args.seed)
     mamba = phase_serve_mamba(args.seed)
@@ -2069,8 +2384,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/relational.cu",
         "replaces": "src/repro/kernels/relational.py:111",
-        # the hot chain's launches plus the chain phase's (its delta masks among them)
-        "launches": main["launches"] + chain["launches"],
+        # the hot chain's launches plus the chain phase's (its delta masks among
+        # them) and the service's threads'; the fleet workers' own are logged
+        "launches": main["launches"] + chain["launches"] + service["launches"],
         "max_abs_err": max_err,
         "ms": shape["ms"],
         "plain_ms": shape["plain_ms"],

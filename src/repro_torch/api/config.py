@@ -10,11 +10,7 @@ it beside a certificate, rebuild the identical verifier anywhere.
 The port's config has every field of the reference package's, so a config
 round-trips through JSON between the two.  Its ``to_json()`` differs from
 the reference's default only in ``plane`` (the port's data planes are
-``numpy`` and ``torch``, and it runs on the card unless asked otherwise) and
-in ``evs`` (the port's roster has no JAX-traced EV).  The fields that drive
-sessions, the shared tier and learned guidance are carried and validated
-here; the layers that read them are not part of the port yet, and
-``build()`` refuses ``guidance="model"`` rather than run unguided.
+``numpy`` and ``torch``, and it runs on the card unless asked otherwise).
 """
 
 from __future__ import annotations
@@ -216,11 +212,11 @@ class VeerConfig:
             cache = VerdictCache(
                 self.cache_path, max_entries=self.cache_max_entries
             )
+        guidance = None
         if self.guidance == "model":
-            raise ConfigError(
-                "guidance='model' needs the learned scorer, which arrives with "
-                "the port's learn layer; use guidance='none'"
-            )
+            from repro_torch.learn import load_guidance  # late: learn -> core -> api
+
+            guidance = load_guidance(self.guidance_path)
         return Veer(
             registry.build(list(self.evs)),
             **{f: getattr(self, f) for f in _FLAG_FIELDS},
@@ -228,6 +224,7 @@ class VeerConfig:
             max_workers=self.max_workers,
             verdict_cache=cache,
             search_backend=self.search_backend,
+            guidance=guidance,
         )
 
     # -- serialization -------------------------------------------------------

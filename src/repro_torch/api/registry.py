@@ -12,8 +12,9 @@ state — so the replayed verdict is independent of the session that produced
 the certificate.  Names are shared with the reference package, so a
 certificate written by either package replays in the other.
 
-The port's roster is Equitas, Spes and UDP.  The reference package's fourth
-EV, ``"jaxpr"``, traces windows with JAX and has no counterpart here yet.
+The port's roster is the reference's: Equitas, Spes, UDP and the traced EV,
+which the port traces with ``torch.fx`` (``repro_torch.core.ev.fx_ev``) and
+registers under the reference's name, ``"jaxpr"``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from typing import Callable, Dict, FrozenSet, Iterator, List, Optional, Sequence
 
 from repro_torch.core.ev.base import BaseEV
 
-#: Canonical roster order (paper §8 multi-EV setup).
-DEFAULT_EV_NAMES: Tuple[str, ...] = ("equitas", "spes", "udp")
+#: Canonical roster order (paper §8 multi-EV setup + the traced EV).
+DEFAULT_EV_NAMES: Tuple[str, ...] = ("equitas", "spes", "udp", "jaxpr")
 
 
 @dataclass(frozen=True)
@@ -147,6 +148,7 @@ def default_registry() -> EVRegistry:
     global _DEFAULT
     if _DEFAULT is None:
         from repro_torch.core.ev.equitas import EquitasEV
+        from repro_torch.core.ev.fx_ev import FxEV
         from repro_torch.core.ev.spes import SpesEV, UDPEV
 
         reg = EVRegistry()
@@ -163,6 +165,11 @@ def default_registry() -> EVRegistry:
         reg.register(
             UDPEV,
             description="UDP-style EV: Spes fragment plus Union",
+        )
+        reg.register(
+            FxEV,
+            description="traced EV: lowers windows to torch.fx graphs over "
+            "symbolic tables; handles UDF/Sort windows published EVs reject",
         )
         _DEFAULT = reg
     return _DEFAULT

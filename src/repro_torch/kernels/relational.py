@@ -30,13 +30,15 @@ kernel.
 raises); on CPU tensors it runs ``relational_reference``, the plain PyTorch
 version, written as float64 ops one at a time.  ``relational.launches``
 counts kernel launches, and ``relational.launches_by_instance`` counts them
-by route.
+by route; both under a lock, since a verification service launches from
+several threads.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple, Union
 
@@ -158,6 +160,7 @@ def relational(
 
 relational.launches = 0
 relational.launches_by_instance = dict.fromkeys(ROUTES, 0)
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=1)
@@ -275,8 +278,9 @@ def _launch(
             rc = lib.veer_relational_launch_params(words.ctypes.data, len(words), n, len(cols),
                                                    len(hosts), stream)
     _build.check(lib, rc, "relational kernel")
-    relational.launches += 1
-    relational.launches_by_instance[way] += 1
+    with _COUNT_LOCK:
+        relational.launches += 1
+        relational.launches_by_instance[way] += 1
     return result
 
 

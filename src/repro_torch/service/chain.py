@@ -257,6 +257,7 @@ class VersionChainSession:
         *,
         config: Optional[VeerConfig] = None,
         registry: Optional[EVRegistry] = None,
+        cache: Optional[VerdictCache] = None,
         pair_cache: Optional[PairVerdictCache] = None,
         materialization_store: Optional[MaterializationStore] = None,
         device: str = "cuda",
@@ -264,7 +265,9 @@ class VersionChainSession:
         """``config`` (default ``VeerConfig()``) names the EVs, resolved
         through ``registry``, and carries the semantics, the data plane, the
         ``exec_mode`` and the verdict cache's path and LRU bound (in-memory
-        when ``cache_path`` is None).
+        when ``cache_path`` is None).  An explicit ``cache`` (a verdict
+        cache shared by many sessions, as a ``VerificationService`` passes)
+        wins over the one the config describes.
 
         ``pair_cache`` (a shared ``repro_torch.service.pair_cache
         .PairVerdictCache``) short-circuits whole pairs already decided by
@@ -288,11 +291,13 @@ class VersionChainSession:
         plane (``"cuda"`` unless the caller asks for ``"cpu"``); it is not
         part of the config, so ``VeerConfig.to_json()`` does not carry it."""
         config = config if config is not None else VeerConfig()
-        # honor the config's LRU bound so long-lived sessions do not
-        # accumulate verdict/validity entries without limit
-        self.cache = VerdictCache(
-            config.cache_path, max_entries=config.cache_max_entries
-        )
+        if cache is None:
+            # honor the config's LRU bound so long-lived sessions do not
+            # accumulate verdict/validity entries without limit
+            cache = VerdictCache(
+                config.cache_path, max_entries=config.cache_max_entries
+            )
+        self.cache = cache
         self.config = config
         self.veer = config.build(registry, cache=self.cache)
         self.semantics = config.semantics

@@ -1,8 +1,9 @@
-"""The port stands alone: no JAX, nothing of the reference package, and no
-quiet fallback to the host when CUDA was asked for.
+"""The port stands alone: no JAX, nothing of the reference package or of
+the repository's benchmarks, and no quiet fallback to the host when CUDA
+was asked for.
 
 This file imports neither JAX nor the reference package, so its ``cuda``
-test runs on a GPU machine without them:
+tests run on a GPU machine without them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_isolation.py
 """
@@ -41,9 +42,15 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.api, repro_torch.core.verifier, repro_torch.core.ev\n"
         "import repro_torch.core.frontier, repro_torch.core.delta, repro_torch.engine.delta\n"
         "import repro_torch.service, repro_torch.service.synthetic, repro_torch.reuse\n"
+        "import repro_torch.core.ev.fx_ev, repro_torch.core.ev.torch_bodies\n"
+        "import repro_torch.learn, repro_torch.learn.train, repro_torch.workload\n"
+        "import repro_torch.workload.workloads, repro_torch.workload.replay\n"
+        "import repro_torch.service.server, repro_torch.service.fleet\n"
+        "import repro_torch.service.remote, repro_torch.service.remote.filetier\n"
         "repro_torch.configs.get_arch('llama3-8b')\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "repro_torch.api.VeerConfig(guidance='model').build()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'benchmarks')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'repro.', 'benchmarks.')))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,7 +75,7 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), f"{path}: imports {mod}"
 
 
 def _no_cuda(monkeypatch):
@@ -214,3 +221,48 @@ def test_cuda_delta_chain_masks_run_the_kernel():
             assert report.exec_stats.ops_delta > 0
             assert R.relational.launches > before
 
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_workers_run_the_kernel_after_the_parent_used_the_card():
+    """The parent runs the torch plane on the card first (so CUDA is
+    initialized here), then a 2-worker fleet on ``device="cuda"``: both
+    workers execute, and each reports relational launches of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    from repro_torch.api import VeerConfig
+    from repro_torch.engine import tables_identical
+    from repro_torch.service import (
+        ConsistentHashRing,
+        VerificationFleet,
+        shard_key,
+        stop_helper_processes,
+    )
+    from repro_torch.service.synthetic import make_chain
+
+    chain = make_chain(3, heavy=True)
+    rng = np.random.default_rng(0)
+    sources = {sid: Table({c: rng.integers(0, 7, 100_000).astype(np.float64) for c in "abc"},
+                          list("abc")) for sid in sorted(chain[0].sources)}
+    want = [execute(v, sources) for v in chain]  # the parent on the card
+    assert R.relational.launches > 0
+    ring = ConsistentHashRing(2)
+    clients, shards = [], set()
+    for i in range(64):  # one client per shard, so both workers execute
+        shard = ring.node(shard_key(f"c{i}", chain[0]))
+        if shard not in shards:
+            shards.add(shard)
+            clients.append(f"c{i}")
+    with VerificationFleet(2, config=VeerConfig(evs=("equitas", "spes", "udp")),
+                           device="cuda") as fleet:
+        futs = {c: [fleet.submit(c, v, sources=sources, timeout=300) for v in chain]
+                for c in clients}
+        report = fleet.drain()
+    assert not report.errors, report.errors
+    for fs in futs.values():
+        for k, f in enumerate(fs):
+            r = f.result(timeout=300)
+            assert all(tables_identical(want[k][s], r.results[s]) for s in want[k])
+    assert [ws["relational_launches"] > 0 for ws in report.worker_stats] == [True, True]
+    del fleet
+    stop_helper_processes()  # the forkserver and resource tracker end here

@@ -11,8 +11,10 @@ Each is built by the reference package and carried across through
 hash the same operators.  On each pair, under the baseline and Veer+, both
 search backends and one or four window workers, the port must give the
 reference's verdict, its deterministic ``VeerStats`` counters and its
-``Certificate.to_json()`` bytes.  Anything executed runs with
-``device="cpu"``.
+``Certificate.to_json()`` bytes; the same holds under both packages' full
+default roster, whose fourth EV is the traced one (the port's FxEV, the
+reference's JaxprEV), and under ``guidance="model"``.  Anything executed
+runs with ``device="cpu"``.
 """
 
 import functools
@@ -343,6 +345,25 @@ def test_port_matches_reference(name, mode):
         assert seen == {c["expected"]}
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_port_matches_reference_with_the_full_roster(name):
+    """The same pairs under both packages' default roster, the traced EV
+    (the reference's JaxprEV, the port's FxEV) among them: Veer+ on both
+    search backends, and on four window workers."""
+    c, P, Q, mapping = carried(name)
+    full = dict(c, evs=port_api.DEFAULT_EV_NAMES)
+    assert tuple(ref_api.DEFAULT_EV_NAMES) == port_api.DEFAULT_EV_NAMES
+    seen = set()
+    for backend, workers in (("bitmask", 1), ("reference", 1), ("bitmask", 4)):
+        ref = _outcome(run_pair(ref_api, c["P"], c["Q"], full, c["mapping"],
+                                backend=backend, workers=workers))
+        got = _outcome(run_pair(port_api, P, Q, full, mapping, backend=backend,
+                                workers=workers))
+        assert got == ref, (backend, workers)
+        seen.add(got[0])
+    assert len(seen) == 1
+
+
 SINGLE_EDIT = ("empty_filter", "single_edit", "inequivalent_constant", "cert_witness",
                "unsupported_udf_change")
 
@@ -384,6 +405,17 @@ EV_NAMES = ("equitas", "spes", "udp")
 def test_ev_verdicts_match_window_by_window(name):
     """Each window's query pair, fingerprint, and every EV's ``validate``
     and ``check`` verdicts agree between the packages."""
+    _match_window_by_window(name, EV_NAMES)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_traced_ev_verdicts_match_window_by_window(name):
+    """The fourth EV of the roster on the same windows: the port's FxEV
+    against the reference's JaxprEV."""
+    _match_window_by_window(name, ("jaxpr",))
+
+
+def _match_window_by_window(name, ev_names):
     c, P, Q, mapping = carried(name)
     rp = RefVersionPair(c["P"], c["Q"], c["mapping"] or ref_identity_mapping(c["P"], c["Q"]),
                         c["semantics"])
@@ -391,8 +423,8 @@ def test_ev_verdicts_match_window_by_window(name):
     assert [(u.p, u.q) for u in pp.units] == [(u.p, u.q) for u in rp.units]
     assert [sorted(ch.required_units) for ch in pp.changes] == \
         [sorted(ch.required_units) for ch in rp.changes]
-    ref_evs = ref_api.default_registry().build(EV_NAMES)
-    port_evs = port_api.default_registry().build(EV_NAMES)
+    ref_evs = ref_api.default_registry().build(ev_names)
+    port_evs = port_api.default_registry().build(ev_names)
     windows = _windows(pp)
     assert windows == _windows(rp)
     assert bool(windows) == bool(pp.changes)
@@ -447,13 +479,14 @@ def test_cache_file_written_by_one_package_warms_the_other(writer, tmp_path):
 
 
 def test_config_json_differs_from_the_reference_only_in_plane_and_evs():
+    """The roster is whole: the default configs differ only in ``plane``."""
     ref = json.loads(ref_api.VeerConfig().to_json())
     port = json.loads(port_api.VeerConfig().to_json())
     assert set(ref) == set(port)
-    assert {k for k in ref if ref[k] != port[k]} == {"plane", "evs"}
+    assert {k for k in ref if ref[k] != port[k]} == {"plane"}
     assert (ref["plane"], port["plane"]) == ("numpy", "torch")
-    assert ref["evs"] == ["equitas", "spes", "udp", "jaxpr"]
-    assert port["evs"] == list(port_api.DEFAULT_EV_NAMES) == list(EVS3)
+    assert port["evs"] == ref["evs"] == list(port_api.DEFAULT_EV_NAMES)
+    assert port["evs"] == ["equitas", "spes", "udp", "jaxpr"]
 
 
 @pytest.mark.parametrize("preset", ["plus", "baseline"])
@@ -472,22 +505,35 @@ def test_config_validates_the_plane_against_the_ports_registry():
     assert port_api.VeerConfig(plane="numpy").validate()
     with pytest.raises(port_api.ConfigError, match="plane"):
         port_api.VeerConfig(plane="jax").validate()
+    config = port_api.VeerConfig(evs=("equitas", "jaxpr"))
+    assert config.validate() is config
     with pytest.raises(port_api.ConfigError, match="unknown EVs"):
-        port_api.VeerConfig(evs=("equitas", "jaxpr")).validate()
+        port_api.VeerConfig(evs=("equitas", "jax")).validate()
 
 
 def test_guidance_model_raises_config_error():
-    config = port_api.VeerConfig(guidance="model", evs=EVS3)
-    assert config.validate() is config  # carried data: it round-trips
-    with pytest.raises(port_api.ConfigError, match="learn layer"):
-        config.build()
+    """``guidance="model"`` builds (the learn layer is ported) and verifies
+    as the reference does; only a bad guidance setting raises."""
     with pytest.raises(port_api.ConfigError):
-        port_api.verify(*carried("empty_filter")[1:3], config)
+        port_api.VeerConfig(guidance="learned").validate()
+    with pytest.raises(port_api.ConfigError):
+        port_api.VeerConfig(guidance_path="/x.json").validate()
+    for name in ("cert_two_filters", "cert_witness", "seeded3", "multi1", "empty_filter"):
+        c, P, Q, mapping = carried(name)
+        config = port_api.VeerConfig(guidance="model", evs=c["evs"])
+        assert config.build().guidance is not None
+        ref = ref_api.verify(c["P"], c["Q"],
+                             ref_api.VeerConfig(guidance="model", evs=c["evs"]),
+                             mapping=c["mapping"])
+        got = port_api.verify(P, Q, config, mapping=mapping)
+        assert _outcome(got) == _outcome(ref), name
 
 
 def test_default_registry_is_the_three_evs_and_copies_are_isolated():
+    """The default registry holds the reference's roster, three symbolic EVs
+    and the traced one, and copies of it are isolated."""
     reg = port_api.default_registry()
-    assert reg.names() == list(EVS3)
+    assert reg.names() == list(EVS3) + ["jaxpr"] == list(ref_api.default_registry().names())
     mine = reg.copy()
     mine.register(SpesEV, replace=True, description="again")
     assert port_api.default_registry().spec("spes").description != "again"
