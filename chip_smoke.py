@@ -98,6 +98,23 @@ Phases (any failure exits non-zero and prints no result):
                  times, the bytes and seconds of pickling each submit's
                  message (measured apart from the fleet) and the file
                  tier's payload writes (the workers' own clocks).
+  7c. ingest    paper use case 1: the four iterations of
+                 ``examples/torch_iterative_analytics.py`` (the ingestion
+                 pipeline: two FILTERs through the relational kernel,
+                 ``tokenize_pack`` and the sink on the host) through
+                 ``ReuseManager`` on a disk store under ``build/`` at the
+                 torch plane, ``corpus_table(1_000_000)`` a version, uncut:
+                 v1 and v4 executed (each with at least 2 FILTER launches),
+                 v2 and v3 served from the store; ``ReuseStats`` equal to a
+                 numpy-plane manager's run of the same versions, every
+                 executed sink ``tables_identical`` to that run's, both
+                 certificates replayed.  Then v1 and v4 through a 2-worker
+                 CUDA ``VerificationFleet`` (``tokenize_pack`` reaches its
+                 workers only in the registry snapshot the fleet sends):
+                 sinks identical to the manager's, no errors.  Logs each
+                 version's verify, execute and store-write seconds, the JSON
+                 bytes of the tokens column and each worker's launches by
+                 route and by use.
   8. llm-kernels flash attention, RMSNorm and the SSD scan against their
                  plain PyTorch versions on the card: flash attention at the
                  prefill shape (B=2, S=T=4096, H=32, KV=8, D=128, bf16,
@@ -141,11 +158,32 @@ Phases (any failure exits non-zero and prints no result):
                  version on every layer's inputs, and the control the plain
                  path with SSD chunks of 128 instead of 256 (the same
                  function summed in another order).
-  11. report     one JSON line of kernels (launches summed over both
-                 serving paths, the relational kernel's over phases 4, 7
-                 and 7b's service; relational, flash attention and the SSD scan also by
-                 instance), the card's name and power limit, then the
-                 result line.
+  11. serve-scout llama4-scout-17b-a16e at full width (d 5120, 40/8 heads,
+                 16 experts top-1 of d_ff 8192, vocab 202048), cut to one
+                 pattern period, its first 4 of 48 layers (3 ``attn_chunk``
+                 + 1 ``attn``, every layer MoE): the steps of phase 9, the
+                 share of tokens routed to other experts than on the plain
+                 path per MoE layer (kernel path and control), decode held
+                 against a forward with capacity for every token
+                 (``capacity_factor = E / K``) over 256 positions, in max
+                 abs difference and in argmax agreements, each at 2x the
+                 plain path's, and one more forward_step of 1 x 12288
+                 tokens, past the chunk of 8192, through the kernels and
+                 held to the plain path.  The logits gate is phase 9's: 2x
+                 the plain path's own reordering.  The mirror path (the
+                 plain path with ``flash_attention_tc_reference`` and
+                 ``ssd_chunked_reference``) is logged beside it.
+  12. serve-jamba jamba-1.5-large-398b at full width (d 8192, 64/8 heads, 16
+                 experts top-2 of d_ff 24576, Mamba-2 state 128, head 64,
+                 expand 2), cut to its layers 3-4 of 72 (a mamba mixer with
+                 MoE, then attention with the dense FFN): the steps of phase
+                 11 but the long forward; the control is the plain path with
+                 attention blocks of 256 and SSD chunks of 128.
+  13. report     one JSON line of kernels (launches summed over the four
+                 serving paths, the relational kernel's over phases 4, 7,
+                 7b's service and 7c's manager; relational, flash attention
+                 and the SSD scan also by instance), the card's name and
+                 power limit, then the result line.
 
 Options: ``--seed N`` (default 0) seeds the serving phase's weights and
 tokens.
@@ -1619,6 +1657,10 @@ def phase_service(card: str, served):
             fail(f"service: the fleet reported errors: {freport.errors}")
         _check_served("fleet", clients, futures, served)
         per_worker = [ws["relational_launches"] if ws else None for ws in freport.worker_stats]
+        # the same launches by plan route and by what asked for them (the
+        # plane's one-time exactness probe among them)
+        breakdown = [{k: ws[k] for k in ("relational_by_route", "relational_by_use")} if ws else None
+                     for ws in freport.worker_stats]
         for cid, (_, shard) in clients.items():
             if not per_worker[shard]:
                 fail(f"service: fleet worker {shard} executed {cid} but reports "
@@ -1627,7 +1669,8 @@ def phase_service(card: str, served):
         ts = freport.tier_stats
         log(f"service: VerificationFleet, 2 workers ({fleet._ctx.get_start_method()}), file tier: "
             f"{t_fleet:.3f} s wall to "
-            f"the drain, close {t_close:.3f} s; relational launches per worker {per_worker}; "
+            f"the drain, close {t_close:.3f} s; relational launches per worker {per_worker}, "
+            f"by route and by use {breakdown}; "
             f"{freport.recoveries} recoveries; pairs served by the tier "
             f"{freport.pair_cache_stats.get('tier_hits', 0)}, tables by the tier "
             f"{freport.store_stats.get('tier_hits', 0)}")
@@ -1641,6 +1684,172 @@ def phase_service(card: str, served):
         shutil.rmtree(tier_dir, ignore_errors=True)
     log(f"service: phase {time.perf_counter() - t_phase:.1f} s; on {card}")
     return {"launches": launches, "fleet_launches": sum(x or 0 for x in per_worker)}
+
+
+# -- 7c. paper use case 1: the ingestion pipeline at 1M documents ------------------
+
+INGEST_DOCS = 1_000_000  # documents a version: corpus_table(1_000_000), uncut
+REUSE_COUNTERS = ("submissions", "sink_hits", "sink_misses", "executions",
+                  "dedup_skipped_writes", "verdict_cache_hits", "certified_reuses",
+                  "interior_hits", "ops_executed", "ops_reused")
+
+
+def _load_example(name):
+    """An example twin of ``examples/`` as a module (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ingest_versions(tag, rm, versions, sources, plane=None):
+    """Submit each version to the manager ``rm``; per version its wall,
+    verify, execute and store-write seconds, relational launches (by use,
+    from ``plane``), whether it executed, and its sinks."""
+    put = rm.store.put
+    spent = [0.0]
+
+    def timed_put(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return put(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    rm.store.put = timed_put
+    rows = []
+    try:
+        for k, v in enumerate(versions, start=1):
+            st = rm.stats
+            before = (st.executions, st.verify_time, st.execute_time, spent[0],
+                      _counts()["relational"], dict(plane.kernel_launches) if plane else {})
+            t0 = time.perf_counter()
+            sinks = rm.submit(v, sources)
+            wall = time.perf_counter() - t0
+            uses = ({u: n - before[5].get(u, 0) for u, n in plane.kernel_launches.items()
+                     if n - before[5].get(u, 0)} if plane else {})
+            rows.append({"sinks": sinks, "executed": st.executions > before[0], "wall": wall,
+                         "verify": st.verify_time - before[1], "execute": st.execute_time - before[2],
+                         "store": spent[0] - before[3], "launches": _counts()["relational"] - before[4],
+                         "uses": uses, "store_bytes": rm.store.stats()["bytes"]})
+            r = rows[-1]
+            log(f"ingest: {tag} v{k}: {'executed' if r['executed'] else 'served'} in {wall:.3f} s "
+                f"(verify {r['verify']:.3f}, execute {r['execute']:.3f}, store writes "
+                f"{r['store']:.3f} s; host clock), {len(sinks['packed'])} documents packed, "
+                f"{r['launches']} relational launches {uses}, store holds {r['store_bytes']} bytes")
+    finally:
+        del rm.store.put  # the instance attribute: the class's method shows again
+    return rows
+
+
+def phase_ingest(card: str):
+    """Paper use case 1 (``examples/torch_iterative_analytics.py``'s four
+    iterations) through ``ReuseManager`` on a disk store under ``build/`` at
+    the torch plane on the card, 1,000,000 documents a version, held to a
+    numpy-plane manager's run; then the executed versions through a
+    2-worker CUDA ``VerificationFleet`` (``tokenize_pack`` reaches its
+    workers only in the registry snapshot the fleet sends them)."""
+    import json
+    import tempfile
+
+    from repro_torch.api import Certificate, VeerConfig
+    from repro_torch.core import dag as D
+    from repro_torch.data import corpus_table
+    from repro_torch.engine import get_plane, tables_identical
+    from repro_torch.engine.store import _jsonable
+    from repro_torch.reuse import ReuseManager
+    from repro_torch.service import ConsistentHashRing, VerificationFleet, shard_key
+
+    t_phase = time.perf_counter()
+    versions = [v for _, v in _load_example("torch_iterative_analytics").iterations()]
+    t0 = time.perf_counter()
+    corpus = corpus_table(INGEST_DOCS)
+    log(f"ingest: corpus_table({INGEST_DOCS}) in {time.perf_counter() - t0:.3f} s")
+    plane = get_plane("torch", device="cuda")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="ingest-", dir=os.path.join(ROOT, "build")) as tmp:
+        ref = ReuseManager(os.path.join(tmp, "numpy"), config=VeerConfig(plane="numpy"))
+        want = _ingest_versions("numpy plane", ref, versions, {"corpus": corpus})
+        _reset_counts()
+        rm = ReuseManager(os.path.join(tmp, "torch"))
+        if rm.plane != "torch" or rm.device != "cuda":
+            fail(f"ingest: the reuse manager runs on {rm.plane}/{rm.device}")
+        got = _ingest_versions("torch plane", rm, versions, {"corpus": corpus}, plane)
+        launches = _counts()["relational"]
+    if [r["executed"] for r in got] != [True, False, False, True]:
+        fail(f"ingest: executed {[r['executed'] for r in got]}, expected v1 and v4 only")
+    for field in REUSE_COUNTERS:
+        if getattr(rm.stats, field) != getattr(ref.stats, field):
+            fail(f"ingest: ReuseStats.{field} {getattr(rm.stats, field)} on the torch plane, "
+                 f"{getattr(ref.stats, field)} on the numpy plane")
+    t0 = time.perf_counter()
+    for k, (w, g) in enumerate(zip(want, got), start=1):
+        if not g["executed"]:
+            continue
+        if not tables_identical(w["sinks"]["packed"], g["sinks"]["packed"]):
+            fail(f"ingest: v{k}'s packed sink differs from the numpy plane's")
+        if g["uses"].get(D.FILTER, 0) < 2:
+            fail(f"ingest: v{k} executed with {g['uses']} relational launches (2 FILTERs expected)")
+    t_cmp = time.perf_counter() - t0
+    if len(rm.certificates) != 2:
+        fail(f"ingest: {len(rm.certificates)} certified reuses, expected 2 (v2 and v3)")
+    for vid, prev, cert in rm.certificates:
+        for c in (cert, Certificate.from_json(cert.to_json())):
+            if not c.replay(P=versions[prev], Q=versions[vid]).ok:
+                fail(f"ingest: the certificate of v{vid + 1} <- v{prev + 1} does not replay")
+    tokens = got[0]["sinks"]["packed"].cols["tokens"]
+    t0 = time.perf_counter()
+    json_bytes = sum(len(json.dumps(_jsonable(v))) for v in tokens)
+    t_json = time.perf_counter() - t0
+    log(f"ingest: ReuseStats equal to the numpy plane's {dict((f, getattr(rm.stats, f)) for f in REUSE_COUNTERS)}; "
+        f"v1 and v4 executed with sinks identical to the numpy plane's (compared in {t_cmp:.3f} s), "
+        f"v2 and v3 served from the store, both certificates replayed; {launches} relational "
+        f"launches; v1's tokens column {len(tokens)} lists, {sum(map(len, tokens))} tokens, "
+        f"{json_bytes} bytes of JSON ({t_json:.3f} s to encode, apart from the store)")
+
+    # the fleet leg: v1 and v4 as two clients on the two workers
+    fleet_want = {0: got[0]["sinks"], 3: got[3]["sinks"]}
+    ring = ConsistentHashRing(2)
+    clients = {}
+    for k in fleet_want:
+        for i in range(256):
+            cid = f"ingest-v{k + 1}-{i}"
+            shard = ring.node(shard_key(cid, versions[k]))
+            if shard not in clients.values():
+                clients[cid] = shard
+                break
+    if sorted(clients.values()) != [0, 1]:
+        fail(f"ingest: no client ids spread over both workers: {clients}")
+    t0 = time.perf_counter()
+    fleet = VerificationFleet(2, config=VeerConfig(evs=VERIFY_EVS), device="cuda")
+    try:
+        futures = {cid: (k, fleet.submit(cid, versions[k], sources={"corpus": corpus},
+                                         timeout=600))
+                   for cid, k in zip(clients, fleet_want)}
+        freport = fleet.drain()
+        t_fleet = time.perf_counter() - t0
+    finally:
+        fleet.close()
+    if freport.errors:
+        fail(f"ingest: the fleet reported errors: {freport.errors}")
+    for cid, (k, f) in futures.items():
+        res = f.result(timeout=600)
+        if not tables_identical(fleet_want[k]["packed"], res.results["packed"]):
+            fail(f"ingest: the fleet's v{k + 1} sink differs from the manager's")
+    workers = [{key: ws[key] for key in ("relational_launches", "relational_by_route",
+                                         "relational_by_use")} if ws else None
+               for ws in freport.worker_stats]
+    for cid, shard in clients.items():
+        if not (workers[shard] or {}).get("relational_launches"):
+            fail(f"ingest: fleet worker {shard} executed {cid} but reports {workers[shard]}")
+    log(f"ingest: VerificationFleet, 2 workers ({fleet._ctx.get_start_method()}), v1 and v4 on "
+        f"{INGEST_DOCS} documents as clients {clients}: {t_fleet:.3f} s to the drain, no "
+        f"errors, sinks identical to the manager's; relational launches per worker {workers}")
+    log(f"ingest: phase {time.perf_counter() - t_phase:.1f} s; on {card}")
+    return {"launches": launches}
 
 
 # -- 8. the LLM kernels against their plain versions -----------------------------
@@ -2019,22 +2228,123 @@ def _plain_blocks(q_block: int):
     return ctx()
 
 
-def _compare(a, b, tol):
+def _mirrors():
+    """Context in which the plain path's flash attention and SSD scan are the
+    plain mirrors of the tensor-core kernels' arithmetic
+    (``ref.flash_attention_tc_reference``, ``ref.ssd_chunked_reference``:
+    their operands split into bf16 hi + lo where the kernels split them),
+    which phase 8 holds each bf16 kernel to.  Its readings are logged, not
+    gated: they say how much of the kernel path's distance from the plain
+    path is the kernels' designed arithmetic."""
+    import contextlib
+
+    from repro_torch.kernels import ops, ref
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = ops.flash_attention, ops.ssd
+
+        def fa(q, k, v, *, causal=True, window=None, chunk=None, q_offset=0, **_):
+            return ref.flash_attention_tc_reference(q, k, v, causal=causal, window=window,
+                                                    chunk=chunk, q_offset=q_offset)
+
+        def ssd(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, impl="auto"):
+            return ref.ssd_chunked_reference(x, dt, A, Bm, Cm, chunk=chunk,
+                                             initial_state=initial_state)
+
+        ops.flash_attention, ops.ssd = fa, ssd
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.ssd = saved
+
+    return ctx()
+
+
+def _against_mirrors(plain, params, batch, logits, logits_plain):
+    """Run the mirror path (``_mirrors``) on ``batch``: ``(k, m, its
+    routes)``, ``k`` comparing the kernel path's ``logits`` with the mirror
+    path's and ``m`` the mirror path's with ``logits_plain`` (``_compare``'s
+    triples)."""
+    with _mirrors(), _routes() as rt_m:
+        logits_mirror = plain.forward_step(params, batch)
+    return (_compare(logits, logits_mirror, LOGIT_TOL), _compare(logits_mirror, logits_plain, LOGIT_TOL),
+            rt_m)
+
+
+def _logit_gate(tag, n_pos, p, c):
+    """The end-to-end gate on ``(max abs diff, ratio, argmax agreements)`` of
+    the kernel path against the plain path (``p``) and of the control, the
+    plain path summed in another order, against it (``c``): the kernel path
+    may part from the plain path by at most ``CONTROL_FACTOR`` x the
+    control, in max abs difference and in argmax misses."""
+    if p[0] > CONTROL_FACTOR * c[0] or (n_pos - p[2]) > CONTROL_FACTOR * (n_pos - c[2]):
+        fail(f"{tag}: the kernels' logits part from the plain path by more than {CONTROL_FACTOR} x "
+             f"the plain path's own reordering does (max abs {p[0]:.4e} vs {c[0]:.4e}, "
+             f"argmax {p[2]} vs {c[2]} of {n_pos})")
+
+
+def _compare(a, b, tol, rows: int = 1024):
     """(max abs diff, worst diff / (tol + tol*|b|), argmax agreements) over
-    the leading axis, in fp32, one slice at a time."""
+    the leading axis, in fp32, ``rows`` positions of one slice at a time
+    (a slice of a 202048-word vocabulary's logits is 3.3 GB in fp32)."""
     worst, ratio, agree = 0.0, 0.0, 0
     for i in range(a.shape[0]):
-        x, y = a[i].float(), b[i].float()
-        d = (x - y).abs()
-        worst = max(worst, float(d.max()))
-        ratio = max(ratio, float((d / (tol + tol * y.abs())).max()))
-        agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+        for j in range(0, a.shape[1], rows):
+            x, y = a[i, j:j + rows].float(), b[i, j:j + rows].float()
+            d = (x - y).abs()
+            worst = max(worst, float(d.max()))
+            ratio = max(ratio, float((d / (tol + tol * y.abs())).max()))
+            agree += int((x.argmax(-1) == y.argmax(-1)).sum())
     return worst, ratio, agree
 
 
 def _layer_divergence(xa, xp):
     """Largest |xa - xp| over largest |xp| for each recorded layer."""
     return [float((a.float() - b.float()).abs().max() / b.float().abs().max()) for a, b in zip(xa, xp)]
+
+
+class _routes:
+    """Record the experts every MoE router picks (``gate_idx``, (B, S, K)),
+    one entry per MoE layer in order."""
+
+    def __init__(self):
+        from repro_torch.models import moe as M
+
+        self.M, self.picks = M, []
+
+    def __enter__(self):
+        orig = self.orig = self.M.route
+
+        def rec(*a, **kw):
+            out = orig(*a, **kw)
+            self.picks.append(out[1])
+            return out
+
+        self.M.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.orig
+
+
+def _route_flips(ra, rb):
+    """Per MoE layer, the share of tokens whose chosen experts differ."""
+    return [float((a != b).any(-1).float().mean()) for a, b in zip(ra.picks, rb.picks)]
+
+
+def _expected_launches(cfg):
+    """Launches of one ``forward_step`` of ``cfg``: flash attention once an
+    attention layer, the SSD scan once a mamba layer, RMSNorm on every norm
+    (one per attention mixer, two per mamba mixer (ln, gn), one per MLP or
+    MoE block, and the final one)."""
+    mask = cfg.moe_layer_mask()
+    kinds = cfg.pattern[:cfg.n_layers]
+    return {"relational": 0,
+            "flash_attention": sum(k != "mamba" for k in kinds),
+            "ssd_scan": sum(k == "mamba" for k in kinds),
+            "rmsnorm": 1 + sum((2 if k == "mamba" else 1) + (1 if mask[i] or cfg.d_ff > 0 else 0)
+                               for i, k in enumerate(kinds))}
 
 
 class _kernels_on_plain_inputs:
@@ -2093,17 +2403,19 @@ class _kernels_on_plain_inputs:
         self.ops.flash_attention, self.ops.rmsnorm, self.ops.ssd = self.fa, self.rms, self.ssd
 
 
-def _decode_against_forward(model, params, tokens, logits, n: int = 64):
-    """Max abs difference of ``n`` decode steps' logits from the forward's
-    logits at the same positions."""
+def _decode_against_forward(model, params, tokens, logits, n: int):
+    """(max abs difference, argmax agreements) of ``n`` decode steps' logits
+    against the forward's logits at the same positions."""
     from repro_torch.serve import init_caches
 
     caches = init_caches(model, tokens.shape[0], n)
-    worst = 0.0
+    worst, agree = 0.0, 0
     for t in range(n):
         lg, caches = model.decode_step(params, caches, tokens[:, t], t)
-        worst = max(worst, float((lg - logits[:, t].float()).abs().max()))
-    return worst
+        want = logits[:, t].float()
+        worst = max(worst, float((lg - want).abs().max()))
+        agree += int((lg.argmax(-1) == want.argmax(-1)).sum())
+    return worst, agree
 
 
 # device-time kinds of the serving paths, by kernel-name substring
@@ -2159,14 +2471,22 @@ def _log_profile(tag, what, prof):
         f"(idle share {prof['idle_share']:.4f}); device ms by kind: {kinds}; top kernels (ms): {top}")
 
 
-def _serve(tag, cfg, seed, mixer, control, control_what):
-    """Serve ``cfg`` at full width and depth with weights drawn from
-    ``seed``: ``forward_step`` on 2 prompts of 4096 tokens through the
-    kernels (``mixer``, the mixer's kernel, once a layer; RMSNorm on every
-    norm), ``greedy_generate`` and decode timings, profiles, then the gates:
-    the kernels on the plain path's inputs, the logits against the plain
-    path beside ``control()`` (a context and a plain model that compute the
-    same function summed in another order), and decode against forward.
+def _serve(tag, cfg, seed, control, control_what, extra=None):
+    """Serve ``cfg`` at full width with weights drawn from ``seed``:
+    ``forward_step`` on 2 prompts of 4096 tokens through the
+    kernels (flash attention once an attention layer, the SSD scan once a
+    mamba layer, RMSNorm on every norm), ``greedy_generate`` and decode
+    timings, profiles, then the gates: the kernels on the plain path's
+    inputs, the logits against the plain path beside ``control()`` (a
+    context and a plain model that compute the same function summed in
+    another order), and decode against forward.  For a config with MoE
+    layers it also logs, per MoE layer, the share of tokens routed to other
+    experts on the kernel path (and in the control) than on the plain path,
+    logs the mirror path (``_against_mirrors``), and holds decode against a
+    forward of ``cfg`` with capacity for every token (``capacity_factor =
+    E / K``: decode drops none, a 4096-token forward at the config's factor
+    may), in max abs difference and in argmax agreements.  ``extra(model, plain, params,
+    gen)``, if given, runs last and returns launches to add to the phase's.
     Every tensor of the run is freed when it returns."""
     import gc
 
@@ -2176,17 +2496,16 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
     from repro_torch.models.layers import tree_leaves
     from repro_torch.serve import greedy_generate, init_caches
 
+    import dataclasses
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"{tag}: device memory in use at the start {torch.cuda.memory_allocated()} bytes")
     model = build_model(cfg)  # attn_impl="auto": the kernels on the card
     plain = build_model(cfg, attn_impl="reference")
-    # RMSNorms: one per attention mixer, two per mamba mixer (ln, gn), one per
-    # MLP, and the final one
-    n_norms = cfg.n_layers * ({"flash_attention": 1, "ssd_scan": 2}[mixer] + (cfg.d_ff > 0)) + 1
-    expect = {"relational": 0, "flash_attention": 0, "ssd_scan": 0, mixer: cfg.n_layers,
-              "rmsnorm": n_norms}
+    expect = _expected_launches(cfg)
+    n_norms = expect["rmsnorm"]
     params, t_init = _sync_s(lambda: model.init(seed, device="cuda"))
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {n_params} parameters "
@@ -2261,14 +2580,14 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
     del caches, state
 
     # the plain path, free running, with every kernel also run on its inputs
-    with _recording() as rec_p, _kernels_on_plain_inputs() as held:
+    with _recording() as rec_p, _routes() as rt_p, _kernels_on_plain_inputs() as held:
         logits_plain, t_plain = _sync_s(lambda: plain.forward_step(params, batch))
-    with _recording() as rec_a:
+    with _recording() as rec_a, _routes() as rt_a:
         model.forward_step(params, batch)
     # the control: the plain path summed in another order
     ctx, ctrl_model = control()
     _reset_counts()
-    with ctx, _recording() as rec_c:
+    with ctx, _recording() as rec_c, _routes() as rt_c:
         logits_ctrl = ctrl_model.forward_step(params, batch)
     if any(_counts().values()):
         fail(f"{tag}: the plain path launched a kernel: {_counts()}")
@@ -2281,9 +2600,16 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
     log(f"{tag}: plain forward {t_plain:.3f} s (with the kernels run beside it); every layer's "
         f"kernel inputs through the kernels: worst distance in tolerances "
         + ", ".join(f"{k} {held.worst[k]:.3f} over {n} calls" for k, n in held_calls.items()))
+    n_pos = 2 * 4096
     log(f"{tag}: logits, kernels against plain, free running: max abs diff {diff:.4e} "
-        f"({ratio:.2f} x tol {LOGIT_TOL}), argmax equal at {agree} of {2 * 4096}; control "
+        f"({ratio:.2f} x tol {LOGIT_TOL}), argmax equal at {agree} of {n_pos}; control "
         f"({control_what}): {c_diff:.4e} ({c_ratio:.2f} x tol), argmax equal at {c_agree}")
+    if rt_p.picks:
+        if not (len(rt_a.picks) == len(rt_c.picks) == len(rt_p.picks)):
+            fail(f"{tag}: MoE routers ran {len(rt_a.picks)}, {len(rt_p.picks)}, {len(rt_c.picks)} times")
+        log(f"{tag}: share of tokens routed to other experts than on the plain path, per MoE layer: "
+            f"kernel path {[round(x, 6) for x in _route_flips(rt_a, rt_p)]}, control "
+            f"{[round(x, 6) for x in _route_flips(rt_c, rt_p)]}")
     log(f"{tag}: residual-stream divergence, max |difference| / max |plain| after layers "
         + ", ".join(f"{l}: {div_a[l]:.3e} (control {div_c[l]:.3e})"
                     for l in sorted({1, 2, 4, 8, 16, 24, 32, 48, len(div_a) - 1} & set(range(len(div_a))))))
@@ -2292,22 +2618,58 @@ def _serve(tag, cfg, seed, mixer, control, control_what):
     for name, worst in held.worst.items():
         if worst > 1.0:
             fail(f"{tag}: {name} on the main path's inputs is {worst:.3f} tolerances from plain")
-    if diff > CONTROL_FACTOR * c_diff or (2 * 4096 - agree) > CONTROL_FACTOR * (2 * 4096 - c_agree):
-        fail(f"{tag}: the kernels' logits part from the plain path by more than {CONTROL_FACTOR} x "
-             f"the plain path's own reordering does (max abs {diff:.4e} vs {c_diff:.4e}, "
-             f"argmax {agree} vs {c_agree})")
+    if cfg.moe is not None:
+        k_cmp, m_cmp, rt_m = _against_mirrors(plain, params, batch, logits, logits_plain)
+        log(f"{tag}: the mirror path (plain, with the tensor-core kernels' arithmetic), max abs diff "
+            f"and argmax agreements of {n_pos}: kernels against it {k_cmp[0]:.4e}, {k_cmp[2]}; it "
+            f"against plain {m_cmp[0]:.4e}, {m_cmp[2]}; share of tokens routed otherwise per MoE "
+            f"layer: kernels against it {[round(x, 6) for x in _route_flips(rt_a, rt_m)]}, it "
+            f"against plain {[round(x, 6) for x in _route_flips(rt_m, rt_p)]}")
+        del rt_m
+    _logit_gate(tag, n_pos, (diff, ratio, agree), (c_diff, c_ratio, c_agree))
+    del rt_a, rt_c, rt_p
 
-    dec = _decode_against_forward(model, params, batch["tokens"], logits)
-    dec_plain = _decode_against_forward(plain, params, batch["tokens"], logits_plain)
-    log(f"{tag}: decode steps 0..63 against the forward's logits: max abs diff {dec:.4e} on the "
-        f"kernel path, {dec_plain:.4e} on the plain path")
+    n_dec = 64
+    if cfg.moe is not None:
+        # decode drops no token (a step's capacity is K); nor does this forward
+        # of the same function with capacity for every token, over the first
+        # 256 positions (a whole number of SSD chunks), all of them decoded
+        del logits_plain
+        nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        n_dec = 256
+        head = {"tokens": batch["tokens"][:, :n_dec + 1]}
+        logits = build_model(nodrop).forward_step(params, head)
+        logits_plain = build_model(nodrop, attn_impl="reference").forward_step(params, head)
+        what = f"a forward with capacity factor {nodrop.moe.capacity_factor:g} (nothing dropped)"
+    else:
+        what = "the forward"
+    dec, dec_agree = _decode_against_forward(model, params, batch["tokens"], logits, n_dec)
+    dec_plain, dec_plain_agree = _decode_against_forward(plain, params, batch["tokens"], logits_plain,
+                                                         n_dec)
+    n_dpos = 2 * n_dec
+    log(f"{tag}: decode steps 0..{n_dec - 1} against {what}'s logits: max abs diff {dec:.4e} on the "
+        f"kernel path, {dec_plain:.4e} on the plain path; argmax equal at {dec_agree} and "
+        f"{dec_plain_agree} of {n_dpos}")
     if dec > CONTROL_FACTOR * dec_plain:
         fail(f"{tag}: decode against forward parts by {dec:.4e} on the kernel path, more than "
              f"{CONTROL_FACTOR} x the plain path's {dec_plain:.4e}")
+    # a token routed to another expert moves its logits by as much as a
+    # logit, on either path, so for MoE the max abs difference says little:
+    # the argmax agreements are held too
+    if cfg.moe is not None and n_dpos - dec_agree > CONTROL_FACTOR * (n_dpos - dec_plain_agree):
+        fail(f"{tag}: decode against forward, argmax equal at {dec_agree} of {n_dpos} on the kernel "
+             f"path, {dec_plain_agree} on the plain path: more than {CONTROL_FACTOR} x the misses")
     del logits_plain
     log(f"{tag}: device memory high-water mark with the checks' recordings "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = {k: fwd_counts[k] + gen_counts[k] for k in fwd_counts}
+    if extra is not None:
+        del logits
+        for k, n in extra(model, plain, params, gen).items():
+            launches[k] += n
+            if k in fwd_inst:  # extra checks that these are tensor-core launches
+                fwd_inst[k]["tc"] += n
     # greedy_generate launches neither (its decode steps run the plain mixers)
     return {"launches": launches, "instances": fwd_inst, "t_forward": t_fwd2,
             "t_prefill": t_prefill, "decode_tps": decode_tps, "peak_bytes": peak}
@@ -2322,7 +2684,7 @@ def phase_serve(seed: int):
 
     cfg = get_arch("llama3-8b")
     # control: attention blocks of 256 instead of the plain path's 512
-    return _serve("serve", cfg, seed, "flash_attention",
+    return _serve("serve", cfg, seed,
                   lambda: (_plain_blocks(256), build_model(cfg, attn_impl="reference")),
                   "the plain path with attention blocks of 256 against 512")
 
@@ -2340,9 +2702,113 @@ def phase_serve_mamba(seed: int):
     cfg = get_arch("mamba2-2.7b")
     # control: SSD in chunks of 128 instead of 256, the same function
     ctrl = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128))
-    return _serve("serve-mamba", cfg, seed, "ssd_scan",
+    return _serve("serve-mamba", cfg, seed,
                   lambda: (contextlib.nullcontext(), build_model(ctrl, attn_impl="reference")),
                   "the plain path with SSD chunks of 128 against 256")
+
+
+# -- 11. serve llama4-scout, one pattern period ------------------------------------
+
+CHUNK_TOKENS = 12_288  # past llama4's attention chunk of 8192: the chunk mask cuts
+
+
+def _chunk_forward(tag, cfg):
+    """One ``forward_step`` of 1 x 12288 tokens, past the chunk of 8192 of
+    the ``attn_chunk`` layers, through the kernels and on the plain path
+    with every flash attention and RMSNorm input also given to the kernel
+    (each within its tolerance); the logits against the plain path's beside
+    the control (attention blocks of 256), as in ``_serve``."""
+    def run(model, plain, params, gen):
+        import torch
+
+        from repro_torch.models import build_model
+
+        batch = {"tokens": torch.randint(2, cfg.vocab, (1, CHUNK_TOKENS + 1), generator=gen,
+                                         device="cuda")}
+        _reset_counts()
+        logits, t_fwd = _sync_s(lambda: model.forward_step(params, batch))
+        counts = _counts()
+        want = _expected_launches(cfg)
+        if counts != want or _instance_counts()["flash_attention"] != {"tc": want["flash_attention"],
+                                                                       "fp32": 0}:
+            fail(f"{tag}: the {CHUNK_TOKENS}-token forward launched {counts}, "
+                 f"{_instance_counts()}, expected {want} on the tensor cores")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{tag}: the {CHUNK_TOKENS}-token forward's logits are not finite")
+        with _kernels_on_plain_inputs() as held:
+            logits_plain = plain.forward_step(params, batch)
+        p_cmp = _compare(logits, logits_plain, LOGIT_TOL)
+        k_cmp, m_cmp, _ = _against_mirrors(plain, params, batch, logits, logits_plain)
+        del logits
+        with _plain_blocks(256):
+            logits_ctrl = build_model(cfg, attn_impl="reference").forward_step(params, batch)
+        c_cmp = _compare(logits_ctrl, logits_plain, LOGIT_TOL)
+        del logits_ctrl, logits_plain
+        log(f"{tag}: forward_step on 1 x {CHUNK_TOKENS} tokens (the chunk mask of {cfg.chunk} cuts): "
+            f"{t_fwd:.3f} s, launches {counts}; kernels on the plain path's inputs: "
+            + ", ".join(f"{k} {held.worst[k]:.3f} tolerances over {n} calls"
+                        for k, n in held.calls.items() if n)
+            + f"; logits, max abs diff and argmax agreements of {CHUNK_TOKENS}: kernels against "
+            f"plain {p_cmp[0]:.4e}, {p_cmp[2]}; the plain path's control {c_cmp[0]:.4e}, {c_cmp[2]}; "
+            f"kernels against the mirror path {k_cmp[0]:.4e}, {k_cmp[2]}; the mirror path against plain "
+            f"{m_cmp[0]:.4e}, {m_cmp[2]}")
+        for name, worst in held.worst.items():
+            if worst > 1.0:
+                fail(f"{tag}: {name} on the {CHUNK_TOKENS}-token forward's inputs is {worst:.3f} "
+                     f"tolerances from plain")
+        _logit_gate(f"{tag} ({CHUNK_TOKENS} tokens)", CHUNK_TOKENS, p_cmp, c_cmp)
+        return counts
+
+    return run
+
+
+def phase_serve_scout(seed: int):
+    """llama4-scout-17b-a16e at full width (d 5120, 40/8 heads, 16 experts
+    top-1 of d_ff 8192, vocab 202048), cut to one pattern period: its first
+    4 layers of 48 (3 ``attn_chunk`` and 1 ``attn``, every layer MoE)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    base = get_arch("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(base, n_layers=4, pattern=base.pattern[:4])
+    return _serve("serve-scout", cfg, seed,
+                  lambda: (_plain_blocks(256), build_model(cfg, attn_impl="reference")),
+                  "the plain path with attention blocks of 256 against 512",
+                  extra=_chunk_forward("serve-scout", cfg))
+
+
+# -- 12. serve jamba-1.5-large, layers 3-4 of 72 ------------------------------------
+
+
+def jamba_window(base):
+    """Layers 3 and 4 of jamba's 72 (counting from 0), a contiguous window of
+    the real stack at full width: a mamba mixer with an MoE block (jamba
+    puts MoE on the odd layers), then attention with the dense FFN."""
+    import dataclasses
+
+    if base.pattern[3:5] != ("mamba", "attn") or base.moe_layer_mask()[3:5] != (True, False):
+        raise ValueError(f"{base.name}: layers 3-4 are not a mamba+MoE and an attention+FFN layer")
+    return dataclasses.replace(base, n_layers=2, pattern=("mamba", "attn"), scan_period=2,
+                               moe=dataclasses.replace(base.moe, every=2, offset=0))
+
+
+def phase_serve_jamba(seed: int):
+    """jamba-1.5-large-398b at full width (d 8192, 64/8 heads, 16 experts
+    top-2 of d_ff 24576, Mamba-2 state 128, head 64, expand 2), cut to its
+    layers 3-4 (``jamba_window``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = jamba_window(get_arch("jamba-1.5-large-398b"))
+    # control: attention blocks of 256 and SSD chunks of 128, the same function
+    ctrl = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128))
+    return _serve("serve-jamba", cfg, seed,
+                  lambda: (_plain_blocks(256), build_model(ctrl, attn_impl="reference")),
+                  "the plain path with attention blocks of 256 and SSD chunks of 128")
 
 
 def _leaves(tree):
@@ -2370,6 +2836,7 @@ def main() -> int:
     phase_verify_corpus(card)
     chain = phase_chain(card)
     service = phase_service(card, chain.pop("served"))
+    ingest = phase_ingest(card)
     # the fleet's forkserver and resource tracker would otherwise outlive it
     # until this process exits: the script leaves nothing running behind it
     from repro_torch.service import stop_helper_processes
@@ -2378,6 +2845,9 @@ def main() -> int:
     llm = phase_llm_kernels(args.seed)
     serve = phase_serve(args.seed)
     mamba = phase_serve_mamba(args.seed)
+    scout = phase_serve_scout(args.seed)
+    jamba = phase_serve_jamba(args.seed)
+    serving = (serve, mamba, scout, jamba)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",
@@ -2385,8 +2855,10 @@ def main() -> int:
         "source": "src/repro_torch/csrc/relational.cu",
         "replaces": "src/repro/kernels/relational.py:111",
         # the hot chain's launches plus the chain phase's (its delta masks among
-        # them) and the service's threads'; the fleet workers' own are logged
-        "launches": main["launches"] + chain["launches"] + service["launches"],
+        # them), the service's threads' and the ingestion manager's; the fleet
+        # workers' own are logged
+        "launches": main["launches"] + chain["launches"] + service["launches"]
+        + ingest["launches"],
         "max_abs_err": max_err,
         "ms": shape["ms"],
         "plain_ms": shape["plain_ms"],
@@ -2413,7 +2885,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}{'_sm90' if two else ''}.cu",
             "replaces": replaces,
-            "launches": serve["launches"][name] + mamba["launches"][name],
+            "launches": sum(run["launches"][name] for run in serving),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
@@ -2424,7 +2896,7 @@ def main() -> int:
         if two:
             kernels[-1]["instances"] = [
                 {"instance": inst, "dtype": dt, "source": f"src/repro_torch/csrc/{name}{suffix}.cu",
-                 "launches": serve["instances"][name][inst] + mamba["instances"][name][inst]}
+                 "launches": sum(run["instances"][name][inst] for run in serving)}
                 for inst, dt, suffix in (("tc", "bf16", "_sm90"), ("fp32", "fp32", ""))]
     for k in kernels:
         if k["launches"] <= 0:

@@ -38,7 +38,7 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.api.registry import EVRegistry, default_registry
-from repro_torch.core.serialize import (
+from repro_torch.api.serialize import (
     CertificateFormatError,
     dag_from_dict,
     dag_to_dict,

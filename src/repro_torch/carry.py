@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dag import DataflowDAG
-from repro_torch.core.serialize import dag_from_dict
+from repro_torch.api.serialize import dag_from_dict
 from repro_torch.engine.table import Table
 
 

@@ -13,7 +13,8 @@
 // pair against 2 bytes per element of q, k, v and o; at the prefill shape
 // (B=2, S=T=4096, H=32, KV=8, D=128, causal) 2.75e11 FLOPs, 0.278 ms at
 // the 989 TFLOP/s bf16 tensor-core peak, far above the bytes' 0.015 ms.  So
-// both products run as wgmma on bf16 operands with fp32 accumulators:
+// both products run as wgmma on bf16 operands with fp32 accumulators (P V
+// twice, for P's hi and lo parts: 6 * D tensor-core FLOPs per pair):
 //
 //   * 384 threads, three warpgroups.  One thread of the first (the producer,
 //     24 registers) copies Q once and K and V tiles of BK = 128 keys into a
@@ -34,11 +35,15 @@
 //     (the accumulator layout puts a row's columns there), p = exp2(x - m)
 //     (ex2.approx, within 2 ulps of fp32).
 //     The row sum l adds the fp32 p.
-//   * O += P V: wgmma m64nDk16 with P as the A operand in registers, rounded
-//     to bf16 (the accumulator layout of S is the A fragment layout of the
-//     next product), V from shared memory MN-major (its rows are keys).
-//     Rounding P to bf16 is what every tensor-core flash kernel does; the
-//     plain mirror of this arithmetic is ref.flash_attention_tc_reference.
+//   * O += P V: wgmma m64nDk16 with P as the A operand in registers (the
+//     accumulator layout of S is the A fragment layout of the next product),
+//     V from shared memory MN-major (its rows are keys).  P goes in as two
+//     bf16 operands, hi = bf16(P) and lo = bf16(P - hi), two products into
+//     the same accumulator: the TPU kernel multiplies P by V in fp32, and P
+//     rounded to bf16 alone (relative error 2^-9 per term) moved the logits
+//     of an MoE model by routing tokens to other experts (PERF.md, PR 21);
+//     hi + lo carries ~2^-17.  V is exact in bf16.  The plain mirror of this
+//     arithmetic is ref.flash_attention_tc_reference.
 //   * o = acc / max(l, 1e-30), written in bf16.  A kv tile whose pairs are
 //     all masked for the block is skipped (the predicate of
 //     flash_attention.py:65-73 at this tile size).  Masks cost nothing on a
@@ -274,7 +279,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           corr[i] = ex2(m[i] - mx[i]);
           m[i] = mx[i];
         }
-        uint32_t pf[BK / 4];  // P in bf16, the A fragments of the second product
+        // P as bf16 hi + lo, the A fragments of the second product
+        uint32_t pf[BK / 4], pl[BK / 4];
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -282,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             const float p0 = ex2(sc[4 * j + 2 * i] - m[i]);
             const float p1 = ex2(sc[4 * j + 2 * i + 1] - m[i]);
             sum[i] += p0 + p1;
-            pf[2 * j + i] = wg::pack_bf16(p0, p1);
+            wg::split_bf16(p0, p1, pf[2 * j + i], pl[2 * j + i]);
           }
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -305,7 +311,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int kk = 0; kk < BK / 16; ++kk) {
           // keys 16 kk .. 16 kk + 15: n8 blocks 2 kk and 2 kk + 1 of S
           const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3]};
-          wg::wgmma_rs<D, 1>(o, a, wg::desc_mn<W>(uv, BK, 0, kk), 1);
+          const uint32_t a_lo[4] = {pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2], pl[4 * kk + 3]};
+          const uint64_t dv = wg::desc_mn<W>(uv, BK, 0, kk);
+          wg::wgmma_rs<D, 1>(o, a, dv, 1);
+          wg::wgmma_rs<D, 1>(o, a_lo, dv, 1);
         }
         wg::commit();
         wg::wait<0>();

@@ -24,12 +24,18 @@
 //   4. ssd_tc_state_pass  per (b, h, 256 elements of P x N), over the chunks
 //                         in order: S_in[z] = exp(cs_end[z-1]) S_in[z-1] +
 //                         state[z-1], from initial_state or zero; writes each
-//                         S_in rounded to bf16 and the fp32 final state.
+//                         S_in split into bf16 hi + lo and the fp32 final
+//                         state.
 //   5. ssd_tc_chunk_out   per (b, chunk, h, 64-row tile, 64 columns of P):
 //                         y = exp(cs_i) (C_i . S_in) + (CB o L o dt) x, wgmma
-//                         with bf16 operands (CB o L o dt rounded to bf16 as
-//                         the published Mamba-2 kernels do), fp32 sums, y
-//                         rounded once to bf16.
+//                         on S_in's hi and lo parts and on CB o L o dt split
+//                         likewise (four products; C and x are exact in
+//                         bf16), fp32 sums, y rounded once to bf16.
+//
+// The splits stand where the TPU kernel multiplies in fp32: one bf16 operand
+// costs ~2^-9 per term, and rounding S_in and CB o L o dt so (as the
+// published Mamba-2 kernels do) moved the logits of a model with an MoE block
+// after its mamba mixer by routing tokens to other experts (PERF.md, PR 21).
 //
 // Every rounding above is mirrored by ref.ssd_chunked_reference, the plain
 // PyTorch version of this arithmetic.  Operands copied as they are (x, B, C,
@@ -41,8 +47,8 @@
 // L=4096, H=80, P=64, G=1, N=128, chunk 256) the inputs and outputs are
 // ~180 MB (0.054 ms at 3.35 TB/s), the least work 3.25e10 FLOPs (0.033 ms
 // at the bf16 peak).  The chunk-parallel form adds its scratch: the chunk
-// states in fp32 (B nc H P N * 4 = 84 MB written and read), S_in in bf16
-// (42 MB written and read), CB (8 MB) and cs (3 MB): ~0.08 ms more at the
+// states in fp32 (B nc H P N * 4 = 84 MB written and read), S_in as bf16
+// hi + lo (84 MB written and read), CB (8 MB) and cs (3 MB): ~0.11 ms more at the
 // memory rate, the price of 2,560 independent (b, chunk, h) units instead of
 // the sequential form's 160 (b, h) walks.
 
@@ -195,11 +201,8 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_state(
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float a0 = __fmul_rn(__bfloat162float(xv[2 * k]), w);
-        const float a1 = __fmul_rn(__bfloat162float(xv[2 * k + 1]), w);
-        const bf16 h0 = __float2bfloat16_rn(a0), h1 = __float2bfloat16_rn(a1);
-        hi[k] = wg::pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-        lo[k] = wg::pack_bf16(a0 - __bfloat162float(h0), a1 - __bfloat162float(h1));
+        wg::split_bf16(__fmul_rn(__bfloat162float(xv[2 * k]), w),
+                       __fmul_rn(__bfloat162float(xv[2 * k + 1]), w), hi[k], lo[k]);
       }
       const uint32_t off = wg::tile_offset<128>(j, p, TILE);
       *reinterpret_cast<uint4*>(shi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -230,8 +233,9 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_state(
           make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
 }
 
-// 4. the state entering each chunk, in bf16 ((B, nc, H, P, N)), and the fp32
-// final state.  One thread per element of P x N of one (b, h).
+// 4. the state entering each chunk as bf16 hi + lo (each (B, nc, H, P, N),
+// lo after hi), and the fp32 final state.  One thread per element of P x N
+// of one (b, h).
 __global__ void ssd_tc_state_pass(const float* __restrict__ state, const float* __restrict__ cs,
                                   const float* __restrict__ init, bf16* __restrict__ s_in,
                                   float* __restrict__ final_state, Shape sh) {
@@ -239,10 +243,13 @@ __global__ void ssd_tc_state_pass(const float* __restrict__ state, const float* 
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= PN) return;
   const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const long long lo = static_cast<long long>(sh.B) * sh.nc * sh.H * PN;
   float carry = init != nullptr ? init[static_cast<long long>(bh) * PN + e] : 0.f;
   for (int z = 0; z < sh.nc; ++z) {
     const long long idx = ((static_cast<long long>(b) * sh.nc + z) * sh.H + h) * PN + e;
-    s_in[idx] = __float2bfloat16_rn(carry);
+    const bf16 hi = __float2bfloat16_rn(carry);
+    s_in[idx] = hi;
+    s_in[lo + idx] = __float2bfloat16_rn(carry - __bfloat162float(hi));
     const float decay =
         expf(cs[(static_cast<long long>(b) * sh.L + static_cast<long long>(z + 1) * sh.chunk - 1) * sh.H + h]);
     carry = __fadd_rn(__fmul_rn(carry, decay), state[idx]);
@@ -259,9 +266,11 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_out(
   constexpr int WN = wg::atom_bytes(N);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sc = align1024(smem_raw);   // 64 rows i x N, K-major
-  uint8_t* ss = sc + TILE * N * 2;     // 64 rows p x N, K-major
-  uint8_t* sm = ss + TILE * N * 2;     // 64 rows i x 64 j, K-major
-  uint8_t* sx = sm + TILE * TILE * 2;  // 64 rows j x 64 p, MN-major
+  uint8_t* ss = sc + TILE * N * 2;     // 64 rows p x N, K-major: S_in's hi
+  uint8_t* ssl = ss + TILE * N * 2;    // and lo
+  uint8_t* sm = ssl + TILE * N * 2;    // 64 rows i x 64 j, K-major: M's hi
+  uint8_t* sml = sm + TILE * TILE * 2; // and lo
+  uint8_t* sx = sml + TILE * TILE * 2; // 64 rows j x 64 p, MN-major
   float* csj = reinterpret_cast<float*>(sx + TILE * TILE * 2);  // cs of rows [0, i0 + 64)
   float* dtj = csj + sh.chunk;                                   // dt of the same rows
   const int n_it = sh.chunk / TILE;
@@ -275,8 +284,10 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_out(
   const long long l0 = static_cast<long long>(z) * sh.chunk;
 
   copy_rows<WN>(sc, TILE, 0, Cm + b * st.cb + g * st.cg, st.cl, l0 + i0, TILE, N);
+  const long long s_lo = static_cast<long long>(sh.B) * sh.nc * sh.H * sh.P * N;
   const bf16* sin = s_in + (((static_cast<long long>(b) * sh.nc + z) * sh.H + h) * sh.P) * N;
   copy_rows<WN>(ss, TILE, 0, sin, N, p0, TILE, N);
+  copy_rows<WN>(ssl, TILE, 0, sin + s_lo, N, p0, TILE, N);
   wg::cp_async_commit();
   const float* csb = cs + (static_cast<long long>(b) * sh.L + l0) * sh.H + h;
   for (int j = t; j < i0 + TILE; j += WG) {
@@ -289,13 +300,15 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_out(
 
   // inter-chunk: (C_i . S_in) exp(cs_i)
   float d[TILE / 2];
-  const uint32_t uc = wg::smem_u32(sc), us = wg::smem_u32(ss);
-  const uint32_t um = wg::smem_u32(sm), ux = wg::smem_u32(sx);
+  const uint32_t uc = wg::smem_u32(sc), us = wg::smem_u32(ss), usl = wg::smem_u32(ssl);
+  const uint32_t um = wg::smem_u32(sm), uml = wg::smem_u32(sml), ux = wg::smem_u32(sx);
   wg::fence();
 #pragma unroll
-  for (int ks = 0; ks < N / 16; ++ks)
-    wg::wgmma_ss<TILE, 0, 0>(d, wg::desc_k<WN>(uc, TILE, 0, ks), wg::desc_k<WN>(us, TILE, 0, ks),
-                             ks > 0);
+  for (int ks = 0; ks < N / 16; ++ks) {
+    const uint64_t dc = wg::desc_k<WN>(uc, TILE, 0, ks);
+    wg::wgmma_ss<TILE, 0, 0>(d, dc, wg::desc_k<WN>(us, TILE, 0, ks), ks > 0);
+    wg::wgmma_ss<TILE, 0, 0>(d, dc, wg::desc_k<WN>(usl, TILE, 0, ks), 1);
+  }
   wg::commit();
   wg::wait<0>();
   wg::fence_regs(d);
@@ -332,9 +345,12 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_out(
                     ? __fmul_rn(__fmul_rn(cv[k], expf(__fsub_rn(ci, csj[jj]))), dtj[jj])
                     : 0.f;
       }
-      *reinterpret_cast<uint4*>(sm + wg::tile_offset<128>(i, j, TILE)) =
-          make_uint4(wg::pack_bf16(mv[0], mv[1]), wg::pack_bf16(mv[2], mv[3]),
-                     wg::pack_bf16(mv[4], mv[5]), wg::pack_bf16(mv[6], mv[7]));
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wg::split_bf16(mv[2 * k], mv[2 * k + 1], hi[k], lo[k]);
+      const uint32_t off = wg::tile_offset<128>(i, j, TILE);
+      *reinterpret_cast<uint4*>(sm + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sml + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
     wg::cp_async_wait<0>();
     wg::fence_async_smem();
@@ -342,8 +358,11 @@ __global__ void __launch_bounds__(WG) ssd_tc_chunk_out(
     wg::fence_regs(d);
     wg::fence();
 #pragma unroll
-    for (int ks = 0; ks < TILE / 16; ++ks)
-      wg::wgmma_ss<TILE, 0, 1>(d, wg::desc_k<128>(um, TILE, 0, ks), wg::desc_mn<128>(ux, TILE, 0, ks), 1);
+    for (int ks = 0; ks < TILE / 16; ++ks) {
+      const uint64_t dx = wg::desc_mn<128>(ux, TILE, 0, ks);
+      wg::wgmma_ss<TILE, 0, 1>(d, wg::desc_k<128>(um, TILE, 0, ks), dx, 1);
+      wg::wgmma_ss<TILE, 0, 1>(d, wg::desc_k<128>(uml, TILE, 0, ks), dx, 1);
+    }
     wg::commit();
     wg::wait<0>();
     wg::fence_regs(d);
@@ -390,7 +409,7 @@ cudaError_t launch(const bf16* x, const float* dt, const float* A, const bf16* B
       state, cs, init, s_in, final_state, sh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const int smem_out = 2 * TILE * N * 2 + 2 * TILE * TILE * 2 + 2 * c * 4 + 1024;
+  const int smem_out = 3 * TILE * N * 2 + 3 * TILE * TILE * 2 + 2 * c * 4 + 1024;
   if ((err = set_smem(ssd_tc_chunk_out<N>, smem_out)) != cudaSuccess) return err;
   ssd_tc_chunk_out<N><<<dim3(nt * (sh.P / TILE), sh.H, sh.B * sh.nc), WG, smem_out, s>>>(
       x, dt, Cm, cs, cb, s_in, y, sh, st);
@@ -401,15 +420,15 @@ cudaError_t launch(const bf16* x, const float* dt, const float* A, const bf16* B
 
 // Scratch, in bytes, that a call needs (the wrapper allocates it and passes
 // the four pieces in this order): cs (B, L, H) fp32, CB (B, nc, G, chunk,
-// chunk) fp32, the chunk states (B, nc, H, P, N) fp32, S_in (B, nc, H, P, N)
-// bf16.
+// chunk) fp32, the chunk states (B, nc, H, P, N) fp32, S_in (2, B, nc, H, P,
+// N) bf16 (hi, then lo).
 extern "C" void veer_ssd_scan_tc_scratch(int Bsz, int L, int H, int P, int G, int N, int chunk,
                                          long long* bytes) {
   const long long nc = L / chunk;
   bytes[0] = 4LL * Bsz * L * H;
   bytes[1] = 4LL * Bsz * nc * G * chunk * chunk;
   bytes[2] = 4LL * Bsz * nc * H * P * N;
-  bytes[3] = 2LL * Bsz * nc * H * P * N;
+  bytes[3] = 4LL * Bsz * nc * H * P * N;
 }
 
 // Launches the five kernels on `stream` (PyTorch's current stream) and

@@ -147,6 +147,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// a0 and a1 as bf16 pairs hi + lo (a - hi rounded to bf16): two products on
+// the tensor cores then carry ~16 bits of each value, where one bf16 operand
+// carries 8 (relative error 2^-9 per term, 2^-17 for hi + lo).
+__device__ __forceinline__ void split_bf16(float a0, float a1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a0, a1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a0 - __low2float(h), a1 - __high2float(h));
+}
+
 // Accumulator layout of m64nN (fp32): thread t of the warpgroup holds
 // d[4j + 2i + c] = D[16 (t / 32) + (t % 32) / 4 + 8 i][8 j + 2 (t % 4) + c].
 __device__ __forceinline__ int acc_row(int t, int i) { return 16 * (t / 32) + (t % 32) / 4 + 8 * i; }

@@ -119,6 +119,10 @@ class TorchPlane(DataPlane):
         self._proj_plans: Dict[str, object] = {}
         self._probed = False
         self.device_probes = 0  # joins that took the device sort/searchsorted probe
+        # relational kernel launches by what asked for them: "probe" (the
+        # one-time exactness probe), D.FILTER, D.PROJECT and "pred_mask" (the
+        # delta engine's masks); each the kernel's own count across the call
+        self.kernel_launches: Dict[str, int] = {}
 
     # -- protocol -------------------------------------------------------------
     def lowers(self, op: D.Operator, inputs: List[Table]) -> bool:
@@ -233,11 +237,11 @@ class TorchPlane(DataPlane):
         e1 = LinExpr.make({"a": Fraction(5, 2), "b": Fraction(-7, 4)}, 1)
         e2 = LinExpr.make({"b": Fraction(1, 3), "c": 2}, Fraction(-1, 2))
         pred = Pred.and_(Pred.of(LinCmp(e1, "<=")), Pred.of(LinCmp(e2, "<")))
-        got_mask = self._eval_pred_plan(self._compile_pred(pred), t)
+        got_mask = self._eval_pred_plan(self._compile_pred(pred), t, "probe")
         if not np.array_equal(got_mask, eval_pred(pred, t)):
             raise PlaneError(f"exactness probe: filter mask differs on {self.device}")
         cols = (("x", e1), ("y", e2), ("b", "b"))
-        got = self._eval_proj_plan(self._compile_proj(cols), t)
+        got = self._eval_proj_plan(self._compile_proj(cols), t, "probe")
         for name, expr in cols:
             want = t.cols[expr] if isinstance(expr, str) else eval_linexpr(expr, t)
             if got.cols[name].tobytes() != want.tobytes():
@@ -306,15 +310,25 @@ class TorchPlane(DataPlane):
                                tuple(tree[0]), len(host_atoms))
         return _PredPlan(tuple(columns), tuple(host_atoms), program)
 
-    def _eval_pred_plan(self, plan: _PredPlan, t: Table) -> np.ndarray:
+    def _relational(self, what: str, program, cols, hosts=()):
+        """Launch the relational kernel, counting its launches under ``what``
+        (a stand-in for the wrapper without a count counts none)."""
+        before = getattr(R.relational, "launches", 0)
+        out = R.relational(program, cols, list(hosts))
+        n = getattr(R.relational, "launches", 0) - before
+        if n:
+            self.kernel_launches[what] = self.kernel_launches.get(what, 0) + n
+        return out
+
+    def _eval_pred_plan(self, plan: _PredPlan, t: Table, what: str) -> np.ndarray:
         hosts = [self._to_device(eval_pred(Pred.of(a), t)) for a in plan.host_atoms]
         cols = [self._column(t.cols[c]) for c in plan.columns]
-        return self._to_host(R.relational(plan.program, cols, hosts))
+        return self._to_host(self._relational(what, plan.program, cols, hosts))
 
     def _filter(self, op: D.Operator, inputs: List[Table]) -> Table:
         self._check_exact()
         plan = self._pred_plan(op.get("pred"))
-        return inputs[0].mask(self._eval_pred_plan(plan, inputs[0]))
+        return inputs[0].mask(self._eval_pred_plan(plan, inputs[0], D.FILTER))
 
     def pred_mask(self, pred, t: Table):
         """Keep-mask of ``pred`` over ``t`` through the relational kernel when
@@ -323,7 +337,7 @@ class TorchPlane(DataPlane):
         plan = self._pred_plan(pred)
         if plan is not None and _numeric(t, plan.columns):
             self._check_exact()
-            return self._eval_pred_plan(plan, t)
+            return self._eval_pred_plan(plan, t, "pred_mask")
         return eval_pred(pred, t)
 
     def _proj_plan(self, cols) -> Optional[_ProjPlan]:
@@ -354,9 +368,9 @@ class TorchPlane(DataPlane):
         program = R.RelProgram(len(columns), tuple(prods), tuple(terms))
         return _ProjPlan(tuple(columns), tuple(items), program)
 
-    def _eval_proj_plan(self, plan: _ProjPlan, src: Table) -> Table:
+    def _eval_proj_plan(self, plan: _ProjPlan, src: Table, what: str) -> Table:
         cols = [self._column(src.cols[c]) for c in plan.columns]
-        vals = [self._to_host(v) for v in R.relational(plan.program, cols)]
+        vals = [self._to_host(v) for v in self._relational(what, plan.program, cols)]
         out_cols: Dict[str, np.ndarray] = {}
         order: List[str] = []
         for name, kind, payload in plan.items:
@@ -367,7 +381,7 @@ class TorchPlane(DataPlane):
     def _project(self, op: D.Operator, inputs: List[Table]) -> Table:
         self._check_exact()
         plan = self._proj_plan(op.get("cols"))
-        return self._eval_proj_plan(plan, inputs[0])
+        return self._eval_proj_plan(plan, inputs[0], D.PROJECT)
 
     # -- JOIN: probe over unique-compressed keys --------------------------------
     def _probe(self, lk: np.ndarray, rk: np.ndarray):

@@ -6,8 +6,8 @@ and bound with ``ctypes``; the dtype picks one:
 
   * bf16: ``src/repro_torch/csrc/flash_attention_sm90.cu``, both products
     as ``wgmma`` on Hopper's tensor cores (one block per 128-row q tile of
-    one batch x head, K/V tiles copied ahead with ``cp.async``, P rounded
-    to bf16 for the second product).  Its arithmetic, rounding for
+    one batch x head, K/V tiles copied ahead with ``cp.async``, P split
+    into bf16 hi + lo for the second product).  Its arithmetic, rounding for
     rounding, is ``ref.flash_attention_tc_reference``.
   * fp32: ``src/repro_torch/csrc/flash_attention.cu``, fp32 FMAs on the
     CUDA cores (TF32 would not hold the fp32 tolerance of 2e-6).

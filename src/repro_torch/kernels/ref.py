@@ -13,9 +13,10 @@ computation a kernel wrapper runs for tensors on the CPU:
     version (with ``_segsum``), and ``ssd_decode_step``, the one-token
     recurrence the decode path runs;
   * ``flash_attention_tc_reference`` and ``ssd_chunked_reference`` — the
-    arithmetic of the bf16 tensor-core instances of kernels 3 and 4, rounded
-    where they round, so that a test can hold each kernel to it tightly and
-    hold it to the plain versions above at their tolerances.  Tests and
+    arithmetic of the bf16 tensor-core instances of kernels 3 and 4, with
+    their operands split into bf16 hi + lo where the kernels split them, so
+    that a test can hold each kernel to it tightly and hold it to the plain
+    versions above at their tolerances.  Tests and
     ``chip_smoke.py`` use them; the main path never does.
 
 The flash custom VJP of the reference comes with the training slice.
@@ -157,6 +158,13 @@ TC_KV_BLOCK = 128  # keys per tile of flash_attention_sm90.cu
 LOG2E = 1.4426950408889634
 
 
+def _split_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``a`` as the two bf16 operands the tensor-core kernels multiply
+    it as, ``hi = bf16(a)`` and ``lo = bf16(a - hi)``, each back in fp32."""
+    hi = a.to(torch.bfloat16).to(torch.float32)
+    return hi, (a - hi).to(torch.bfloat16).to(torch.float32)
+
+
 def flash_attention_tc_reference(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, KV, D)
@@ -170,8 +178,9 @@ def flash_attention_tc_reference(
     """The arithmetic of the bf16 flash kernel (``csrc/flash_attention_sm90.cu``):
     kv tiles of 128 keys; scores in fp32 times ``scale * log2(e)``, masked to
     NEG_INF; the online softmax in base 2 (``exp2``), its row sum over the
-    fp32 probabilities; the probabilities rounded to bf16 for the product
-    with V, accumulated in fp32; ``acc / max(l, 1e-30)`` in q's dtype."""
+    fp32 probabilities; the probabilities split into bf16 hi + lo
+    (``_split_bf16``) for two products with V, accumulated in fp32;
+    ``acc / max(l, 1e-30)`` in q's dtype."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -196,8 +205,9 @@ def flash_attention_tc_reference(
         p = torch.exp2(s - m_new[..., None])
         corr = torch.exp2(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkgst,btkd->bkgsd", p.to(torch.bfloat16).to(f32), vt)
+        hi, lo = _split_bf16(p)
+        acc = (acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", hi, vt)
+               + torch.einsum("bkgst,btkd->bkgsd", lo, vt))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
@@ -331,10 +341,10 @@ def ssd_chunked_reference(
     step by step: (1) cs, the within-chunk cumulative sum of ``dt * A`` in
     order in fp32; (2) ``CB = C Bᵀ`` once per group; (3) each chunk's own
     state ``Σ_j a_j ⊗ B_j`` with ``a_j = x_j · exp(cs_end - cs_j) · dt_j``
-    split into bf16 hi + lo; (4) the state entering each chunk, carried in
-    fp32 and rounded to bf16; (5) ``y = exp(cs_i) (C_i · S_in) + M x`` with
-    ``M = bf16((CB · exp(cs_i - cs_j)) · dt_j)`` on the causal half, y
-    rounded once.  Returns ``(y in x's dtype, final state fp32)``."""
+    split into bf16 hi + lo (``_split_bf16``); (4) the state entering each
+    chunk, carried in fp32 and split likewise; (5) ``y = exp(cs_i) (C_i ·
+    S_in) + M x`` with ``M = (CB · exp(cs_i - cs_j)) · dt_j`` on the causal
+    half, split likewise, y rounded once.  Returns ``(y in x's dtype, final state fp32)``."""
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if chunk <= 0 or L % chunk:
@@ -356,8 +366,7 @@ def ssd_chunked_reference(
     CB = torch.einsum("bzign,bzjgn->bzgij", C_, B_)          # (B, nc, G, c, c)
 
     a = x_ * (torch.exp(cs[:, :, -1:] - cs) * dt_)[..., None]  # (B, nc, c, H, P)
-    hi = a.to(bf16).to(f32)
-    lo = (a - hi).to(bf16).to(f32)
+    hi, lo = _split_bf16(a)
     Bh = torch.repeat_interleave(B_, rep, dim=3)             # (B, nc, c, H, N)
     states = (torch.einsum("bzjhp,bzjhn->bzhpn", hi, Bh)
               + torch.einsum("bzjhp,bzjhn->bzhpn", lo, Bh))
@@ -367,20 +376,23 @@ def ssd_chunked_reference(
              else torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device))
     s_in = []
     for z in range(nc):
-        s_in.append(carry.to(bf16).to(f32))
+        s_in.append(_split_bf16(carry))
         carry = carry * decay[:, z, :, None, None] + states[:, z]
-    s_in = torch.stack(s_in, dim=1)                          # (B, nc, H, P, N)
+    s_hi = torch.stack([h for h, _ in s_in], dim=1)          # (B, nc, H, P, N)
+    s_lo = torch.stack([l for _, l in s_in], dim=1)
 
     Ch = torch.repeat_interleave(C_, rep, dim=3)             # (B, nc, c, H, N)
-    y_off = torch.einsum("bzihn,bzhpn->bzihp", Ch, s_in) * torch.exp(cs)[..., None]
+    y_off = (torch.einsum("bzihn,bzhpn->bzihp", Ch, s_hi)
+             + torch.einsum("bzihn,bzhpn->bzihp", Ch, s_lo)) * torch.exp(cs)[..., None]
     idx = torch.arange(chunk, device=x.device)
     causal = (idx[:, None] >= idx[None, :])[None, None, None]
     csh = cs.permute(0, 1, 3, 2)                             # (B, nc, H, c)
     seg = torch.where(causal, csh[..., :, None] - csh[..., None, :], 0.0)
     CBh = torch.repeat_interleave(CB, rep, dim=2)            # (B, nc, H, c, c)
     M = (CBh * torch.exp(seg)) * dt_.permute(0, 1, 3, 2)[..., None, :]
-    M = torch.where(causal, M, 0.0).to(bf16).to(f32)
-    y = y_off + torch.einsum("bzhij,bzjhp->bzihp", M, x_)
+    M_hi, M_lo = _split_bf16(torch.where(causal, M, 0.0))
+    y = (y_off + torch.einsum("bzhij,bzjhp->bzihp", M_hi, x_)
+         + torch.einsum("bzhij,bzjhp->bzihp", M_lo, x_))
     return y.reshape(Bsz, L, H, P).to(x.dtype), carry
 
 

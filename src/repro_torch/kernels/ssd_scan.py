@@ -8,7 +8,8 @@ CUDA instances, built by ``kernels/_build.py`` at first use and bound with
   * bf16: ``src/repro_torch/csrc/ssd_scan_sm90.cu``, the chunk-parallel form
     on Hopper's tensor cores (five kernels in order: the cumulative sums,
     C·Bᵀ once per group, each chunk's own state with its left operand split
-    into bf16 hi + lo, the sequential state pass, each chunk's output).  Its
+    into bf16 hi + lo, the sequential state pass, each chunk's output with
+    the state entering it and its intra-chunk weights split likewise).  Its
     arithmetic, rounding for rounding, is ``ref.ssd_chunked_reference``.  It
     takes chunk in ``TC_CHUNKS``, P a multiple of 64 and N in ``TC_STATES``,
     and raises on other shapes.  Its 16-byte asynchronous copies need x, B

@@ -1,5 +1,5 @@
-"""Model facade for the dense and SSM (Mamba-2) LM families (the port of
-``models/registry.py``).
+"""Model facade for the dense, SSM (Mamba-2), MoE and hybrid LM families
+(the port of ``models/registry.py``).
 
   model.init(seed, device="cuda")             real params on the device
   model.forward(params, tokens)               logits (B, S, V), bf16
@@ -9,9 +9,9 @@
 ``attn_impl`` ("auto" | "cuda" | "reference", ``kernels/ops.py``) selects
 the flash attention, SSD scan and RMSNorm implementation.  It defaults to
 "auto": the hand-written kernels on CUDA tensors.  The reference defaults
-to its plain path; "reference" names the port's plain path.  The MoE,
-hybrid, audio and VLM families, loss and training, ``remat`` and the
-sharding specs come with later slices.
+to its plain path; "reference" names the port's plain path.  The audio and
+VLM families, loss and training, ``remat`` and the sharding specs come with
+later slices.
 """
 
 from __future__ import annotations
@@ -27,10 +27,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import init_tree, tree_leaves
 
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "moe", "hybrid")
 LATER_SLICES = {
-    "moe": "the MoE and hybrid slice, ROADMAP queue 1: models/moe.py",
-    "hybrid": "the MoE and hybrid slice, ROADMAP queue 1: models/moe.py",
     "audio": "the whisper and VLM slice, ROADMAP queue 1: models/encdec.py",
     "vlm": "the whisper and VLM slice, ROADMAP queue 1: models/vlm.py",
 }
@@ -58,7 +56,7 @@ class Model:
             raise NotImplementedError(
                 f"{self.cfg.name}: family {self.cfg.family!r} comes with a later slice "
                 f"({LATER_SLICES.get(self.cfg.family, 'ROADMAP queue 1')}); the port serves "
-                f"the {' and '.join(FAMILIES)} families")
+                f"the {', '.join(FAMILIES)} families")
         if self.attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}; one of {IMPLS}")
 
@@ -104,8 +102,19 @@ class Model:
         return total
 
     def n_active_params(self) -> int:
-        """Active per token: every parameter, for the dense and SSM families."""
-        return self.n_params()
+        """Active per token (MoE counts top_k of n_experts)."""
+        if self.cfg.moe is None:
+            return self.n_params()
+        m = self.cfg.moe
+        total = 0
+        for path, pd in tree_leaves(self.param_defs()):
+            n = 1
+            for s in pd.shape:
+                n *= s
+            if "ffn_moe" in path and ("w_in" in path or "w_out" in path):
+                n = n * m.top_k // m.n_experts
+            total += n
+        return total
 
 
 def build_model(cfg: ArchConfig, **kw) -> Model:

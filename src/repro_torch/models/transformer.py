@@ -1,11 +1,12 @@
 """Decoder-only LM assembled from the per-layer pattern (the port of
-``models/transformer.py``: the dense family and the Mamba-2 SSM family).
+``models/transformer.py``: the dense, Mamba-2 SSM, MoE and hybrid families).
 
 The parameter tree keeps the reference's keys: ``embed``, ``final_ln``,
 ``lm_head`` (untied archs), the stacked ``scan`` whose leaves carry a leading
 ``n_periods`` axis, and ``tail{i}`` for the layers after the last whole
 period.  The reference's ``lax.scan`` over periods is a Python loop over
-that axis here.  MoE layers come with a later slice and raise.
+that axis here.  A layer whose index the config's ``moe_layer_mask`` marks
+has an ``ffn_moe`` (``models/moe.py``) in place of its dense ``ffn``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, tree_map
 
@@ -29,11 +31,10 @@ COMPUTE_DTYPE = torch.bfloat16
 
 def _layer_defs(cfg: ArchConfig, layer_idx: int) -> Dict[str, Any]:
     kind = cfg.pattern[layer_idx]
-    if cfg.moe is not None and cfg.moe_layer_mask()[layer_idx]:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the MoE and hybrid slice (ROADMAP queue 1: models/moe.py)")
     defs: Dict[str, Any] = {"mixer": S.mamba_defs(cfg) if kind == "mamba" else A.attn_defs(cfg)}
-    if cfg.d_ff > 0:
+    if cfg.moe is not None and cfg.moe_layer_mask()[layer_idx]:
+        defs["ffn_moe"] = M.moe_defs(cfg)
+    elif cfg.d_ff > 0:
         defs["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff)
     return defs
 
@@ -46,6 +47,9 @@ def _segments(cfg: ArchConfig) -> Tuple[int, int, int]:
     for i in range(n_periods * p):
         if cfg.pattern[i] != cfg.pattern[i % p]:
             raise ValueError(f"{cfg.name}: layer {i} breaks the pattern period {p}")
+    if cfg.moe is not None and not (p % cfg.moe.every == 0 or cfg.moe.every % p == 0
+                                    or cfg.moe.every == 1):
+        raise ValueError(f"{cfg.name}: MoE every {cfg.moe.every} layers does not fit the period {p}")
     return p, n_periods, rem
 
 
@@ -93,7 +97,9 @@ def _block_fwd(lp, x, cfg: ArchConfig, kind: str, positions, attn_impl: str) -> 
         x = S.mamba_block(lp["mixer"], x, cfg, ssd_impl=attn_impl_to_ssd(attn_impl))
     else:
         x = A.attn_block(lp["mixer"], x, cfg, kind, positions=positions, attn_impl=attn_impl)
-    if "ffn" in lp:
+    if "ffn_moe" in lp:
+        x = M.moe_block(lp["ffn_moe"], x, cfg, impl=attn_impl)
+    elif "ffn" in lp:
         x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
     return x
 
@@ -150,7 +156,9 @@ def _block_decode(lp, cache, x, pos, cfg: ArchConfig, kind: str, impl: str):
         x, cache = S.mamba_decode_block(lp["mixer"], x, cache, pos, cfg, impl=impl)
     else:
         x, cache = A.attn_decode_block(lp["mixer"], x, cache, pos, cfg, kind, impl=impl)
-    if "ffn" in lp:
+    if "ffn_moe" in lp:
+        x = M.moe_block(lp["ffn_moe"], x, cfg, impl=impl)
+    elif "ffn" in lp:
         x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=impl)
     return x, cache
 

@@ -20,6 +20,7 @@ from repro_torch.service.chain import (
 )
 from repro_torch.service.fleet import (
     ConsistentHashRing,
+    FleetRegistryError,
     FleetReport,
     FleetWorkerLost,
     VerificationFleet,
@@ -38,6 +39,7 @@ from repro_torch.core.ev.cache import VerdictCache
 __all__ = [
     "ChainReport",
     "ConsistentHashRing",
+    "FleetRegistryError",
     "FleetReport",
     "FleetWorkerLost",
     "PairEntry",

@@ -49,10 +49,15 @@ Design:
     any process that ran the torch plane on the card has), so on a CUDA
     device the workers start from a ``forkserver``: a fresh interpreter
     that has imported this module and never touched the card.  On the CPU
-    they are forked from the parent, as the reference package's are.
-    Either way a worker runs torch's CPU ops on one thread: a forked child
-    inherits no usable OpenMP pool, and the plane's bytes do not depend on
-    the thread count.
+    they are forked from the parent, as the reference package's are.  A
+    forkserver's worker has only what its imports registered, so at start
+    the fleet takes a snapshot of the parent's UDF and nonlinear-atom
+    registries (the engine's and the traced EV's) and each worker
+    registers it before its first job: a UDF registered at run time in the
+    parent reaches every worker, as it does through a fork.  Either way a
+    worker runs torch's CPU ops on one thread: a forked child inherits no
+    usable OpenMP pool, and the plane's bytes do not depend on the thread
+    count.
 
 ``VerificationFleet`` deliberately mirrors the ``VerificationService``
 surface that ``workload.replay_sessions`` consumes — ``submit(client_id,
@@ -66,6 +71,7 @@ from __future__ import annotations
 import bisect
 import hashlib
 import multiprocessing as mp
+import pickle
 import queue as stdlib_queue
 import threading
 import time
@@ -80,6 +86,9 @@ from repro_torch.api.config import VeerConfig
 from repro_torch.api.registry import EVRegistry
 from repro_torch.core.dag import DataflowDAG
 from repro_torch.core.edits import EditMapping
+from repro_torch.core.ev import torch_bodies
+from repro_torch.engine import ops_impl
+from repro_torch.engine import plane as plane_registry
 from repro_torch.kernels import relational as R
 from repro_torch.service.chain import PairReport, VersionChainSession
 from repro_torch.service.remote.adapters import (
@@ -99,6 +108,54 @@ _DRAIN_POLL = 0.05  # parent-side liveness poll while waiting on a barrier
 
 class FleetWorkerLost(RuntimeError):
     """A shard's worker kept dying and its journal could not be replayed."""
+
+
+class FleetRegistryError(ValueError):
+    """An entry of the parent's UDF or nonlinear registries cannot be sent
+    to a fleet's workers (a lambda or a closure does not pickle)."""
+
+
+# -- registries ---------------------------------------------------------------
+#: (name, registry, register decorator) of every registry a worker's sessions
+#: read by name: the engine's UDFs and nonlinear atoms, and the traced EV's
+_REGISTRIES = (
+    ("udf", ops_impl.UDF_REGISTRY, ops_impl.register_udf),
+    ("nonlinear", ops_impl.NONLINEAR_FNS, ops_impl.register_nonlinear),
+    ("torch_udf", torch_bodies.TORCH_UDF_REGISTRY, torch_bodies.register_torch_udf),
+    ("torch_nonlinear", torch_bodies.TORCH_NONLINEAR_FNS, torch_bodies.register_torch_nonlinear),
+)
+
+
+def registry_snapshot() -> Dict[str, Dict[str, object]]:
+    """The parent's registries as a worker needs them, checked to pickle.
+
+    A nonlinear registry holds, beside each atom, its negation under
+    ``"not_" + name``, a lambda that ``register_nonlinear`` builds and that
+    does not pickle: those are left out where their base is present, and
+    the worker's ``register_nonlinear`` builds them again.  An entry that
+    does not pickle raises ``FleetRegistryError`` naming it."""
+    snap: Dict[str, Dict[str, object]] = {}
+    for kind, reg, _ in _REGISTRIES:
+        nonlinear = "nonlinear" in kind
+        entries = {name: fn for name, fn in reg.items()
+                   if not (nonlinear and name.startswith("not_") and name[4:] in reg)}
+        for name, fn in entries.items():
+            try:
+                pickle.dumps(fn)
+            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                raise FleetRegistryError(
+                    f"{kind} {name!r} ({fn!r}) cannot be sent to a fleet worker: {e}; register an "
+                    f"importable module-level function instead") from e
+        snap[kind] = entries
+    return snap
+
+
+def _install_registries(snap: Dict[str, Dict[str, object]]) -> None:
+    """Register a ``registry_snapshot`` in this process, over what its own
+    imports registered (the parent's entries are the ones its jobs mean)."""
+    for kind, _, register in _REGISTRIES:
+        for name, fn in snap.get(kind, {}).items():
+            register(name)(fn)
 
 
 # -- consistent hashing -------------------------------------------------------
@@ -174,7 +231,18 @@ def _decode_report(payload: Optional[dict]) -> Optional[PairReport]:
 
 
 # -- worker process -----------------------------------------------------------
-def _worker_main(worker_id, task_q, result_q, config, registry, device):
+def _plane_launches(device) -> Dict[str, int]:
+    """The kernel launches of this process's torch plane on ``device``, by
+    use (empty before the plane exists: reading never creates it)."""
+    plane = plane_registry._INSTANCES.get(("torch", device))
+    return getattr(plane, "kernel_launches", {})
+
+
+def _since(now: Dict[str, int], start: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - start.get(k, 0) for k, v in now.items() if v - start.get(k, 0)}
+
+
+def _worker_main(worker_id, task_q, result_q, config, registry, device, registries=None):
     """One shard's process: serial chain sessions over tier-backed caches.
 
     Messages in: ``("job", seq, client_id, version, mapping, sources)``,
@@ -184,11 +252,21 @@ def _worker_main(worker_id, task_q, result_q, config, registry, device):
     The task queue is FIFO, so by the time a drain barrier is read every
     prior job of this shard has been answered.  The drain stats carry
     ``relational_launches``: the relational kernel's launches in this
-    process since it started (the port's own key).
+    process since it started, and the same launches by plan route
+    (``relational_by_route``) and by what asked for them
+    (``relational_by_use``: the torch plane's exactness probe, FILTER,
+    PROJECT, the delta engine's masks); the port's own keys.  ``registries`` is the
+    parent's ``registry_snapshot`` (None for a forked worker, which has the
+    parent's registries already).
     """
     torch.set_num_threads(1)
-    launches_at_start = R.relational.launches  # a forked child inherits the count
+    # a forked child inherits the counts, and the parent's memoized plane
+    launches_at_start = R.relational.launches
+    routes_at_start = dict(R.relational.launches_by_instance)
+    uses_at_start = dict(_plane_launches(device))
     try:
+        if registries is not None:
+            _install_registries(registries)
         tier = make_tier(
             config.shared_tier,
             config.tier_dir,
@@ -219,6 +297,10 @@ def _worker_main(worker_id, task_q, result_q, config, registry, device):
                             "relational_launches": (
                                 R.relational.launches - launches_at_start
                             ),
+                            "relational_by_route": _since(
+                                R.relational.launches_by_instance, routes_at_start),
+                            "relational_by_use": _since(
+                                _plane_launches(device), uses_at_start),
                         },
                     )
                 )
@@ -331,11 +413,13 @@ class VerificationFleet:
 
     Linux only.  On the CPU the workers are forked and inherit the config,
     registry and queue ends directly.  On a CUDA device they start from a
-    ``forkserver`` that preloads this module, and the config, the registry
-    and the queue ends are pickled to them: the registry's factories must
-    be importable classes or functions, and UDFs or nonlinear atoms
-    registered at run time in the parent do not reach the workers (those
-    registered when their module is imported do, through the preload).
+    ``forkserver`` that preloads this module, and the config, the registry,
+    the queue ends and a snapshot of the UDF and nonlinear registries taken
+    here (``registry_snapshot``) are pickled to them: the registry's
+    factories and every UDF and nonlinear atom must be importable classes
+    or functions, and one that is not (a lambda, a closure) raises
+    ``FleetRegistryError`` here, naming it.  A UDF registered after the
+    fleet started does not reach its workers.
     As with any ``forkserver`` or ``spawn`` start, each CUDA worker imports
     the parent's main module, so a script that builds a CUDA fleet keeps
     its work under ``if __name__ == "__main__":``.
@@ -363,6 +447,9 @@ class VerificationFleet:
         self.queue_size = queue_size
         self.n_workers = workers
         self._ctx = _context(device)
+        # a forked worker has the parent's registries; a forkserver's gets them sent
+        self._registries = (registry_snapshot()
+                            if self._ctx.get_start_method() != "fork" else None)
         self._ring = ConsistentHashRing(workers)
         self._result_qs = [self._ctx.Queue() for _ in range(workers)]
         self._task_qs = [self._ctx.Queue(maxsize=queue_size) for _ in range(workers)]
@@ -531,6 +618,7 @@ class VerificationFleet:
                 self.config,
                 self.registry,
                 self.device,
+                self._registries,
             ),
             daemon=True,
         )

@@ -52,7 +52,7 @@ def _raw_dag_digest(dag: DataflowDAG) -> str:
     Memoized on the DAG instance; deterministic across processes."""
     d = getattr(dag, "_raw_pair_cache_digest", None)
     if d is None:
-        from repro_torch.core.serialize import dag_to_dict
+        from repro_torch.api.serialize import dag_to_dict
 
         blob = json.dumps(dag_to_dict(dag), sort_keys=True,
                           separators=(",", ":"))

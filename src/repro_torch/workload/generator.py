@@ -43,7 +43,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 from repro_torch.core import dag as D
 from repro_torch.core.dag import DataflowDAG, Link, Operator
 from repro_torch.core.edits import EditMapping
-from repro_torch.core.serialize import dag_to_dict
+from repro_torch.api.serialize import dag_to_dict
 from repro_torch.engine.store import table_digest
 from repro_torch.engine.table import Table
 from repro_torch.workload.config import WorkloadConfig

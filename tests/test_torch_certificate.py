@@ -24,7 +24,7 @@ from repro.core.window import VersionPair as RefVersionPair
 
 from repro_torch import api as port_api
 from repro_torch.api import Certificate, CertificateFormatError, WindowRecord, pair_digest, tampered
-from repro_torch.core import serialize
+from repro_torch.api import serialize
 from repro_torch.core.dag import DataflowDAG, Link, Operator
 from repro_torch.core.edits import identity_mapping
 from repro_torch.core.ev.cache import VerdictCache

@@ -52,7 +52,7 @@ from repro_torch.core.delta import (
     delta_census,
 )
 from repro_torch.core.edits import EditMapping
-from repro_torch.core.serialize import operator_from_dict
+from repro_torch.api.serialize import operator_from_dict
 from repro_torch.engine import InMemoryMaterializationStore, Table, execute, table_digest
 from repro_torch.engine.delta import DeltaUnsupported, execute_delta
 from repro_torch.engine.executor import ExecutionPlan

@@ -5,7 +5,11 @@ Seeded cases of ``tests/test_fleet_differential.py``'s property: fleets of
 1, 2 and 4 workers over the local and the file tier answer byte for byte
 what one process answers, and what the reference package's fleet answers
 (verdicts, ``decompositions_explored``, certificate JSON, the canonical
-bytes of every executed sink).  Then the process-death cases of
+bytes of every executed sink).  Then a UDF registered at run time in the
+parent, and the ingestion pipeline's ``tokenize_pack``, through workers
+that are forked and through workers started from a forkserver (as on
+CUDA), and an unpicklable registry entry refused at start.  Then the
+process-death cases of
 ``tests/test_fleet_faults.py``: a worker killed with SIGKILL is respawned
 and its journal replayed.  Every wait is bounded: a fleet that stops
 answering is written off and the test fails instead of hanging.
@@ -21,10 +25,28 @@ from repro import workload as ref_workload
 from repro.api.config import VeerConfig as RefVeerConfig
 from repro.service import VerificationFleet as RefFleet
 
+import numpy as np
+
 import repro_torch.service.fleet as fleet_mod
 from repro_torch.api.config import VeerConfig
-from repro_torch.engine import InMemoryMaterializationStore, PlaneError
-from repro_torch.service import ConsistentHashRing, VerificationFleet, shard_key
+from repro_torch.core import dag as D
+from repro_torch.core.ev import torch_bodies
+from repro_torch.core.predicates import Pred
+from repro_torch.data import corpus_table, ingestion_pipeline
+from repro_torch.engine import (
+    InMemoryMaterializationStore,
+    PlaneError,
+    Table,
+    execute,
+    ops_impl,
+    tables_identical,
+)
+from repro_torch.service import (
+    ConsistentHashRing,
+    FleetRegistryError,
+    VerificationFleet,
+    shard_key,
+)
 from repro_torch.service.chain import VersionChainSession
 from repro_torch.service.synthetic import make_chain
 from repro_torch.workload import SessionGenerator, WorkloadConfig
@@ -213,6 +235,92 @@ def test_default_device_is_cuda_and_a_worker_without_it_fails_the_job():
     fleet_mod.stop_helper_processes()
     assert forkserver._forkserver._forkserver_pid is None
     assert resource_tracker._resource_tracker._pid is None
+
+
+# ---------------------------------------------------------------------------
+# registries: what a worker started from a forkserver must be sent
+# ---------------------------------------------------------------------------
+
+
+def _scaled_sum(t):
+    """A UDF this module registers at run time (importable, so it pickles)."""
+    return t.with_col("s", t.cols["a"] * 3.0 + t.cols["b"])
+
+
+def _both_pos(a, b):
+    return (a > 0) & (b > 0)
+
+
+def _udf_chain():
+    """Two versions that run ``_scaled_sum``: the second adds a filter."""
+    def version(th):
+        ops = [D.Operator.make("src", D.SOURCE, schema=("a", "b")),
+               D.Operator.make("f", D.FILTER, pred=Pred.cmp("a", ">", th)),
+               D.Operator.make("u", D.UDF, fn="fleet_scaled_sum", out_schema=("a", "b", "s")),
+               D.Operator.make("out", D.SINK, semantics=D.BAG)]
+        path = [o.id for o in ops]
+        return D.DataflowDAG(ops, [D.Link(x, y) for x, y in zip(path, path[1:])])
+
+    rng = np.random.default_rng(3)
+    src = {"src": Table({"a": rng.integers(-5, 9, 400).astype(np.float64),
+                         "b": rng.uniform(-1, 1, 400)}, ["a", "b"])}
+    return [version(0.0), version(2.0)], src
+
+
+@pytest.mark.parametrize("start", ["fork", "forkserver"])
+def test_workers_run_a_udf_registered_at_run_time_and_tokenize_pack(monkeypatch, start):
+    """The parent registers a UDF after import; two clients (one its
+    chain, one two versions of the ingestion pipeline with ``tokenize_pack``)
+    run on a 2-worker fleet whose workers are forked, or started from a
+    forkserver as on CUDA (where they have only the sent snapshot): no
+    errors, and every sink identical to one process's."""
+    monkeypatch.setitem(ops_impl.UDF_REGISTRY, "fleet_scaled_sum", _scaled_sum)
+    if start == "forkserver":  # the CUDA start method, with the plane on the CPU
+        cuda_context = fleet_mod._context("cuda")
+        monkeypatch.setattr(fleet_mod, "_context", lambda device: cuda_context)
+    udf_chain, udf_src = _udf_chain()
+    ingest = [ingestion_pipeline(min_quality=0.25, lang=0), ingestion_pipeline(min_quality=0.6, lang=0)]
+    ingest_src = {"corpus": corpus_table(300)}
+    fleet = VerificationFleet(2, config=CONFIG, device="cpu")
+    try:
+        assert fleet._ctx.get_start_method() == start
+        futs = _bounded(fleet, lambda: (
+            [fleet.submit("udf", v, sources=udf_src, timeout=TIMEOUT) for v in udf_chain],
+            [fleet.submit("ingest", v, sources=ingest_src, timeout=TIMEOUT) for v in ingest]))
+        report = _bounded(fleet, fleet.drain)
+    finally:
+        _bounded(fleet, fleet.close)
+    if start == "forkserver":
+        del fleet
+        fleet_mod.stop_helper_processes()
+    assert not report.errors, report.errors
+    for fs, versions, src in ((futs[0], udf_chain, udf_src), (futs[1], ingest, ingest_src)):
+        for f, v in zip(fs, versions):
+            results = f.result(timeout=TIMEOUT).results
+            want = execute(v, src, device="cpu")
+            assert all(tables_identical(want[s], results[s]) for s in want)
+    assert len(want["packed"]) > 0
+
+
+def test_snapshot_sends_base_entries_and_refuses_what_does_not_pickle(monkeypatch):
+    """A nonlinear atom registered at run time travels without its negation
+    (a lambda the worker rebuilds); a lambda UDF makes a forkserver fleet
+    raise ``FleetRegistryError`` naming it before any worker starts, while
+    a forked fleet, which sends nothing, starts."""
+    for name in ("fleet_both_pos", "not_fleet_both_pos"):  # removed again at teardown
+        monkeypatch.setitem(ops_impl.NONLINEAR_FNS, name, None)
+    ops_impl.register_nonlinear("fleet_both_pos")(_both_pos)
+    snap = fleet_mod.registry_snapshot()
+    assert snap["nonlinear"]["fleet_both_pos"] is _both_pos
+    assert not any(k.startswith("not_") for k in snap["nonlinear"])
+    assert set(snap["udf"]) == set(ops_impl.UDF_REGISTRY)
+    assert set(snap["torch_udf"]) == set(torch_bodies.TORCH_UDF_REGISTRY)
+
+    monkeypatch.setitem(ops_impl.UDF_REGISTRY, "fleet_lambda_udf", lambda t: t)
+    with pytest.raises(FleetRegistryError, match="fleet_lambda_udf"):
+        VerificationFleet(1, config=CONFIG, device="cuda")
+    fleet = VerificationFleet(1, config=CONFIG, device="cpu")
+    _bounded(fleet, fleet.close)
 
 
 def test_sharding_is_deterministic_and_spreads():

@@ -34,7 +34,7 @@ from repro_torch.core.ev import FxEV
 from repro_torch.core.ev import fx_ev
 from repro_torch.core.ev import torch_bodies as B
 from repro_torch.core.ev.base import QueryPair
-from repro_torch.core.serialize import query_pair_from_dict
+from repro_torch.api.serialize import query_pair_from_dict
 
 op = Operator.make
 ROOT = pathlib.Path(__file__).resolve().parent.parent

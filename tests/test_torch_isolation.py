@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of the reference package or of
-the repository's benchmarks, and no quiet fallback to the host when CUDA
-was asked for.
+the repository's benchmarks (in the package, its example twins
+``examples/torch_*.py`` and ``chip_smoke.py``), and no quiet fallback to
+the host when CUDA was asked for.
 
 This file imports neither JAX nor the reference package, so its ``cuda``
 tests run on a GPU machine without them:
@@ -8,6 +9,7 @@ tests run on a GPU machine without them:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_isolation.py
 """
 import ast
+import importlib.util
 import os
 import pathlib
 import subprocess
@@ -34,7 +36,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def test_import_loads_no_jax_and_no_reference_module():
     code = (
-        "import sys, repro_torch, repro_torch.carry, repro_torch.core.serialize\n"
+        "import sys, repro_torch, repro_torch.carry, repro_torch.api.serialize\n"
+        "import repro_torch.data, repro_torch.data.pipeline, repro_torch.models.moe\n"
         "import repro_torch.engine.plane.torch_plane, repro_torch.kernels.relational\n"
         "import repro_torch.configs, repro_torch.models.registry, repro_torch.serve.decode\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm\n"
@@ -70,7 +73,9 @@ def _imported_modules(path):
 
 
 def test_no_file_of_the_port_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 5
+    files = sorted(PORT.rglob("*.py")) + twins + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):
@@ -117,6 +122,20 @@ def test_execute_defaults_to_cuda(monkeypatch):
     assert execute(dag, sources, device="cpu")["k"].n == 2
     assert ExecutionPlan(dag, sources, device="cpu").plane.name == "torch"
     assert execute(dag, sources, plane="numpy")["k"].n == 2
+
+
+@pytest.mark.parametrize("name", ["quickstart", "chain_session", "verification_service",
+                                  "iterative_analytics", "serve_decode"])
+def test_example_twins_default_to_cuda(monkeypatch, name):
+    """Each twin runs on CUDA unless the CPU is asked for: without CUDA its
+    ``main()`` raises before it prints anything."""
+    spec = importlib.util.spec_from_file_location(f"_twin_{name}",
+                                                  ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _no_cuda(monkeypatch)
+    with pytest.raises((PlaneError, RuntimeError), match="device='cpu'"):
+        mod.main()
 
 
 def test_chain_session_and_reuse_manager_default_to_cuda(monkeypatch, tmp_path):
@@ -221,6 +240,54 @@ def test_cuda_delta_chain_masks_run_the_kernel():
             assert report.exec_stats.ops_delta > 0
             assert R.relational.launches > before
 
+
+
+def _scaled_sum(t):
+    """A UDF the CUDA fleet test registers at run time (importable, so a
+    forkserver's worker can be sent it)."""
+    return t.with_col("s", t.cols["a"] * 3.0 + t.cols["b"])
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_runs_a_udf_registered_at_run_time_and_tokenize_pack(monkeypatch):
+    """After the parent used the card, a 2-worker CUDA fleet (workers from a
+    forkserver) runs a DAG whose UDF the parent registered at run time and
+    the ingestion pipeline's ``tokenize_pack``: no errors, every sink
+    identical to the parent's own run on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this on the card")
+    from repro_torch.api import VeerConfig
+    from repro_torch.data import corpus_table, ingestion_pipeline
+    from repro_torch.engine import ops_impl, tables_identical
+    from repro_torch.service import VerificationFleet, stop_helper_processes
+
+    monkeypatch.setitem(ops_impl.UDF_REGISTRY, "cuda_fleet_scaled_sum", _scaled_sum)
+    ops = [D.Operator.make("src", D.SOURCE, schema=("a", "b")),
+           D.Operator.make("f", D.FILTER, pred=Pred.cmp("a", ">", 0)),
+           D.Operator.make("u", D.UDF, fn="cuda_fleet_scaled_sum", out_schema=("a", "b", "s")),
+           D.Operator.make("out", D.SINK, semantics=D.BAG)]
+    udf_dag = D.DataflowDAG(ops, [D.Link(x.id, y.id) for x, y in zip(ops, ops[1:])])
+    rng = np.random.default_rng(1)
+    udf_src = {"src": Table({"a": rng.integers(-5, 9, 100_000).astype(np.float64),
+                             "b": rng.uniform(-1, 1, 100_000)}, ["a", "b"])}
+    ingest = [ingestion_pipeline(min_quality=0.25, lang=0), ingestion_pipeline(min_quality=0.6, lang=0)]
+    ingest_src = {"corpus": corpus_table(20_000)}
+    want_udf = execute(udf_dag, udf_src)  # the parent on the card
+    want_ingest = [execute(v, ingest_src) for v in ingest]
+    assert R.relational.launches > 0
+    with VerificationFleet(2, config=VeerConfig(evs=("equitas", "spes", "udp")),
+                           device="cuda") as fleet:
+        f_udf = fleet.submit("udf", udf_dag, sources=udf_src, timeout=300)
+        f_ingest = [fleet.submit("ingest", v, sources=ingest_src, timeout=300) for v in ingest]
+        report = fleet.drain()
+    assert not report.errors, report.errors
+    got = f_udf.result(timeout=300).results
+    assert all(tables_identical(want_udf[s], got[s]) for s in want_udf)
+    for want, f in zip(want_ingest, f_ingest):
+        got = f.result(timeout=300).results
+        assert all(tables_identical(want[s], got[s]) for s in want)
+    del fleet
+    stop_helper_processes()
 
 
 @pytest.mark.cuda

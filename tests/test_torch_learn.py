@@ -27,7 +27,7 @@ from repro_torch import learn
 from repro_torch.api import default_registry
 from repro_torch.api.certificate import Certificate, certificate_from_evidence
 from repro_torch.core.edits import EditMapping
-from repro_torch.core.serialize import query_pair_from_dict
+from repro_torch.api.serialize import query_pair_from_dict
 from repro_torch.core.verifier import Veer
 from repro_torch.workload import WindowExample, WorkloadConfig, default_veer_config
 from repro_torch.workload.workloads import WORKLOADS, apply_equivalent_edits

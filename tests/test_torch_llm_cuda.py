@@ -19,9 +19,9 @@ own arithmetic (``ref.flash_attention_tc_reference``,
 ``ref.ssd_chunked_reference``) at a tight tolerance: every element within two
 bf16 units in the last place of the mirror's value plus 1e-3, but for at most
 one in 10^5 elements, which must be within 2e-2 of it.  The two sum in other
-orders, so a bf16 rounding may fall the other way: of an output, or of a
-bf16 operand that the kernel rounds (the SSD's S_in and CB o L o dt), whose
-one-ulp step can move an output element by ~1e-2.  An indexing fault moves
+orders, so the bf16 rounding of an output may fall the other way, and an
+operand split into bf16 hi + lo (P; the SSD's S_in and CB o L o dt) may
+split at another point.  An indexing fault moves
 whole rows or tiles.  The SSD final state: 1e-5 (both take the cumulative
 sums in the same order).
 """

@@ -1,7 +1,8 @@
-"""The port's dense and Mamba-2 LMs on the CPU against the reference's.
+"""The port's dense, Mamba-2, MoE and hybrid LMs on the CPU against the
+reference's.
 
-For the reduced llama3-8b, gemma3-27b, glm4-9b, command-r-plus-104b and
-mamba2-2.7b, the reference's ``Model.init`` parameters are carried to the
+For the reduced llama3-8b, gemma3-27b, glm4-9b, command-r-plus-104b,
+mamba2-2.7b, llama4-scout, llama4-maverick and jamba, the reference's ``Model.init`` parameters are carried to the
 port with ``params_from_reference``; then the port's forward logits (plain
 path on the host) are held to the reference's ``attn_impl="reference"``
 forward, and its decode-step logits to the reference's over 16 positions.
@@ -30,7 +31,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import tree_leaves
 
 DENSE = ["llama3-8b", "gemma3-27b", "glm4-9b", "command-r-plus-104b"]
-SERVED = DENSE + ["mamba2-2.7b"]
+MOE = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b", "jamba-1.5-large-398b"]
+SERVED = DENSE + ["mamba2-2.7b"] + MOE
 TOL = 2e-2  # bf16 activations and logits in both
 
 
@@ -159,6 +161,8 @@ def test_n_params_equal_the_reference_at_full_size():
     assert 25e9 <= build_model(get_arch("gemma3-27b")).n_params() <= 30e9
     assert 95e9 <= build_model(get_arch("command-r-plus-104b")).n_params() <= 112e9
     assert 2.5e9 <= build_model(get_arch("mamba2-2.7b")).n_params() <= 3.0e9
+    assert 100e9 <= build_model(get_arch("llama4-scout-17b-a16e")).n_params() <= 115e9
+    assert build_model(get_arch("llama4-scout-17b-a16e")).n_active_params() < 20e9
 
 
 def test_silu_is_the_references_bit_for_bit_in_bf16():
@@ -186,7 +190,7 @@ def test_configs_are_the_reference_configs():
             assert getattr(cfg.with_reduced(), field) == getattr(ref.with_reduced(), field), (name, field)
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
 def test_families_of_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(get_arch(arch).with_reduced())

@@ -26,7 +26,7 @@ from repro.engine.ops_impl import _stable_desc_fix as ref_desc_fix
 from repro.engine.ops_impl import eval_pred as ref_eval_pred
 from repro.service.synthetic import make_chain
 from repro_torch.carry import from_reference
-from repro_torch.core.serialize import decode_value
+from repro_torch.api.serialize import decode_value
 from repro_torch.engine import ExecutionPlan, PlaneError, available_planes, get_plane
 from repro_torch.engine import execute as port_execute
 from repro_torch.engine.canon import column_codes, combine_codes, run_bounds
@@ -484,3 +484,31 @@ def test_canon_matches_reference(seed):
                           ref_desc_fix(vals[order_], order_))
     run_id, starts, ends = run_bounds(np.sort(column_codes(vals, nan_distinct=True)))
     assert len(starts) == len(ends) == (int(run_id[-1]) + 1 if n else 0)
+
+
+def test_kernel_launches_are_counted_by_what_asked_for_them(monkeypatch):
+    """The plane files each relational launch under its use: the one-time
+    exactness probe (a mask and a projection), FILTER, PROJECT and the
+    delta engine's ``pred_mask``; the sum is the kernel's own count."""
+    def counting(program, cols, hosts=()):
+        counting.launches += 1
+        return R.relational_reference(program, cols, hosts)
+
+    counting.launches = 0
+    monkeypatch.setattr(R, "relational", counting)
+    rng = np.random.default_rng(9)
+    src = RTable({"a": rng.uniform(-5, 5, 40), "b": rng.uniform(-5, 5, 40)}, ["a", "b"])
+    dag = _pipeline(
+        Operator.make("f", D.FILTER, pred=Pred.cmp("a", ">", 0)),
+        Operator.make("p", D.PROJECT, cols=(("s", LinExpr.make({"a": 2, "b": -1}, 1)),)),
+        schema=("a", "b"),
+    )
+    plane = TorchPlane(device="cpu")
+    pdag, psrc = _carry(dag, {"src": src})
+    got = psrc["src"]
+    for _ in range(2):
+        for op_id in ("f", "p"):
+            got = plane.execute_op(pdag.ops[op_id], [psrc["src"] if op_id == "f" else got])
+    plane.pred_mask(pdag.ops["f"].get("pred"), psrc["src"])
+    assert plane.kernel_launches == {"probe": 2, D.FILTER: 2, D.PROJECT: 2, "pred_mask": 1}
+    assert sum(plane.kernel_launches.values()) == counting.launches

@@ -30,7 +30,7 @@ from repro.core.predicates import LinCmp, LinExpr, NonLinearAtom, Pred, StrEq
 from repro.engine.ops_impl import eval_linexpr, eval_pred
 from repro.engine.table import Table as RTable
 from repro.kernels.relational import build_elementwise
-from repro_torch.core.serialize import decode_value
+from repro_torch.api.serialize import decode_value
 from repro_torch.engine.plane.torch_plane import TorchPlane
 from repro_torch.engine.table import Table
 from repro_torch.kernels import relational as R

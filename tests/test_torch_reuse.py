@@ -52,7 +52,7 @@ from repro_torch.api import (
 )
 from repro_torch.core.edits import identity_mapping
 from repro_torch.core.frontier import compute_delta_plan, exact_frontier_map
-from repro_torch.core.serialize import dag_to_dict
+from repro_torch.api.serialize import dag_to_dict
 from repro_torch.engine import (
     DiskMaterializationStore,
     InMemoryMaterializationStore,

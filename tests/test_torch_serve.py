@@ -1,5 +1,6 @@
 """The port's ``greedy_generate`` on the CPU against the reference's, for
-reduced dense models and reduced mamba2-2.7b (KV caches and SSM caches).
+reduced dense models, reduced mamba2-2.7b (KV caches and SSM caches), and
+reduced llama4-scout and jamba (MoE, and MoE beside mamba layers).
 
 From the same parameters (carried with ``params_from_reference``), the
 reference generates greedily; both packages then run teacher-forced along
@@ -51,7 +52,8 @@ def _teacher_forced_port(model, params, seq):
     return np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-27b", "mamba2-2.7b",
+                                  "llama4-scout-17b-a16e", "jamba-1.5-large-398b"])
 def test_greedy_generate_matches_reference(arch):
     rm = ref_build(ref_arch(arch).with_reduced())
     rp = rm.init(jax.random.PRNGKey(7))

@@ -211,3 +211,21 @@ def test_ssd_chunked_mirror_matches_reference_and_pallas(case):
     for want_y, want_s in want:
         np.testing.assert_allclose(_np(y), _np(want_y), atol=2e-2, rtol=2e-2)
         np.testing.assert_allclose(_np(s), _np(want_s), atol=st_tol, rtol=st_tol)
+
+
+@pytest.mark.parametrize("case", TC_SHAPES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_chunked_mirror_multiplies_as_the_plain_version_does(case):
+    """S_in and CB o L o dt enter their products as bf16 hi + lo, close to
+    the fp32 of the plain version and the Pallas kernel: at most 1 in 100
+    bf16 outputs differ from the plain version's (each rounded to bf16
+    alone: ~1 in 3)."""
+    B, L, H, P, G, N, chunk, with_init = case
+    x, dt, A, Bm, Cm = _inputs(L + chunk, B, L, H, P, G, N)
+    init = (torch.from_numpy(np.random.default_rng(chunk).standard_normal((B, H, P, N),
+                                                                          dtype=np.float32))
+            if with_init else None)
+    tx, tB, tC = _t(x, Bm, Cm, dtype=torch.bfloat16)
+    args = (tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC)
+    y, _ = ref.ssd_chunked_reference(*args, chunk=chunk, initial_state=init)
+    plain, _ = ref.ssd_reference(*args, chunk=chunk, initial_state=init)
+    assert float((y != plain).float().mean()) <= 0.01

@@ -631,7 +631,7 @@ def test_chip_smoke_pinned_verdicts_are_the_references(pair):
     row count: the verdict it pins is the reference's, and the sink
     equality it pins holds on the reference's execution and the port's."""
     from repro.api.serialize import dag_from_dict
-    from repro_torch.core.serialize import dag_to_dict as port_dag_to_dict
+    from repro_torch.api.serialize import dag_to_dict as port_dag_to_dict
 
     smoke = _chip_smoke()
     P = smoke.hot_chain()

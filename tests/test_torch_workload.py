@@ -24,7 +24,7 @@ from repro.api.serialize import dag_to_dict as ref_dag_to_dict
 
 from repro_torch import api as port_api
 from repro_torch.core import dag as D
-from repro_torch.core.serialize import dag_to_dict
+from repro_torch.api.serialize import dag_to_dict
 from repro_torch.engine import execute
 from repro_torch.engine.table import Table
 from repro_torch.service import ServiceBusy, VerificationService, VersionChainSession
