@@ -103,7 +103,8 @@ Phases (any failure exits non-zero and prints no result):
                  pipeline: two FILTERs through the relational kernel,
                  ``tokenize_pack`` and the sink on the host) through
                  ``ReuseManager`` on a disk store under ``build/`` at the
-                 torch plane, ``corpus_table(1_000_000)`` a version, uncut:
+                 torch plane, ``corpus_table(250_000)`` a version (cut
+                 from 1M to keep the script well inside its time limit):
                  v1 and v4 executed (each with at least 2 FILTER launches),
                  v2 and v3 served from the store; ``ReuseStats`` equal to a
                  numpy-plane manager's run of the same versions, every
@@ -119,9 +120,13 @@ Phases (any failure exits non-zero and prints no result):
                  plain PyTorch versions on the card: flash attention at the
                  prefill shape (B=2, S=T=4096, H=32, KV=8, D=128, bf16,
                  causal), at window=1024, chunk=1024, q_offset>0 with S<T,
-                 causal=False, a tail S=4095, and fp32 at a small shape;
+                 causal=False, a tail S=4095, whisper-tiny's two non-causal
+                 shapes (the encoder, B=8, S=T=1500=11*128+92, H=KV=6,
+                 D=64, and the cross-attention, S=448 over T=1500) in bf16
+                 and fp32, and fp32 at a small shape;
                  RMSNorm at (8192, 4096) bf16, decode rows (4, 1, 4096),
-                 fp32, D=5376, D=12288, D=4097 and mamba2's D=2560 and 5120;
+                 fp32, D=5376, D=12288, D=4097, mamba2's D=2560 and 5120,
+                 whisper-tiny's D=384 and internvl2-2b's D=2048;
                  the SSD scan at mamba2's prefill shape (B=2, L=4096, H=80,
                  P=64, G=1, N=128, chunk 256, bf16), a single chunk, G=2, a
                  nonzero initial state, B=1, and fp32 at the three shapes of
@@ -147,8 +152,10 @@ Phases (any failure exits non-zero and prints no result):
                  every flash attention and RMSNorm input of it also given
                  to the kernel (each within its tolerance), the logits
                  against the kernel path's beside a control (the plain path
-                 summed in another order), and 64 decode steps against the
-                 forward's logits on both paths (see LOGIT_TOL).
+                 summed in another order), 64 decode steps against the
+                 forward's logits on both paths (see LOGIT_TOL), and
+                 ``Model.loss`` on the batch through the kernels against the
+                 plain path's (LOSS_TOL).
   10. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
                  heads of 64, state 128, vocab 50280), fp32 weights from
                  --seed, after llama3-8b's tensors are freed: the same
@@ -179,7 +186,23 @@ Phases (any failure exits non-zero and prints no result):
                  MoE, then attention with the dense FFN): the steps of phase
                  11 but the long forward; the control is the plain path with
                  attention blocks of 256 and SSD chunks of 128.
-  13. report     one JSON line of kernels (launches summed over the four
+  13. serve-whisper whisper-tiny at full size, nothing cut (4 encoder + 4
+                 decoder layers, d 384, 6 heads of 64, d_ff 1536, vocab
+                 51865, 1500 frames from --seed; the frontend is a stub):
+                 the steps of phase 9 on 8 clips of 1500 frames with 448
+                 decoder positions (the encoder and the cross-attention
+                 through the flash kernel with causal=False, 12 flash and 22
+                 RMSNorm launches a forward_step), ``greedy_generate``
+                 against zero cross-KV as in the reference, decode held
+                 against the forward with each layer's cross-KV filled from
+                 the encoder.
+  14. serve-internvl2 internvl2-2b at full size, nothing cut (24 layers, d
+                 2048, 16/8 heads of 128, d_ff 8192, vocab 92553, 1024
+                 patches of d_vision 1024 from --seed; the ViT is a stub):
+                 ``forward_step`` on 2 x (1024 patches + 4096 tokens), the
+                 steps of phase 9, text-only ``greedy_generate``, decode
+                 held against the text-only forward.
+  15. report     one JSON line of kernels (launches summed over the six
                  serving paths, the relational kernel's over phases 4, 7,
                  7b's service and 7c's manager; relational, flash attention
                  and the SSD scan also by instance), the card's name and
@@ -1686,9 +1709,12 @@ def phase_service(card: str, served):
     return {"launches": launches, "fleet_launches": sum(x or 0 for x in per_worker)}
 
 
-# -- 7c. paper use case 1: the ingestion pipeline at 1M documents ------------------
+# -- 7c. paper use case 1: the ingestion pipeline at 250k documents ----------------
 
-INGEST_DOCS = 1_000_000  # documents a version: corpus_table(1_000_000), uncut
+# documents a version: at 1M the phase took 381 s of a 1,044 s script on an H100
+# 80GB HBM3 at 700 W (PERF.md), so the corpus is cut to a quarter; none of the
+# phase's checks depends on its size
+INGEST_DOCS = 250_000
 REUSE_COUNTERS = ("submissions", "sink_hits", "sink_misses", "executions",
                   "dedup_skipped_writes", "verdict_cache_hits", "certified_reuses",
                   "interior_hits", "ops_executed", "ops_reused")
@@ -1748,7 +1774,7 @@ def _ingest_versions(tag, rm, versions, sources, plane=None):
 def phase_ingest(card: str):
     """Paper use case 1 (``examples/torch_iterative_analytics.py``'s four
     iterations) through ``ReuseManager`` on a disk store under ``build/`` at
-    the torch plane on the card, 1,000,000 documents a version, held to a
+    the torch plane on the card, ``INGEST_DOCS`` documents a version, held to a
     numpy-plane manager's run; then the executed versions through a
     2-worker CUDA ``VerificationFleet`` (``tokenize_pack`` reaches its
     workers only in the registry snapshot the fleet sends them)."""
@@ -1864,7 +1890,11 @@ def phase_ingest(card: str):
 # reordering or decode distance.
 LOGIT_TOL = 2e-2
 CONTROL_FACTOR = 2.0
+# Model.loss through the kernels against the plain path's: atol = rtol = the
+# bf16 logit tolerance (the loss is a mean of fp32 log-sum-exps over them)
+LOSS_TOL = 2e-2
 PREFILL = dict(B=2, S=4096, T=4096, H=32, KV=8, D=128)
+WHISPER_ENC = dict(B=8, S=1500, T=1500, H=6, KV=6, D=64)
 
 # (name, shape, dtype, masks): the prefill shape first, then every mask and tail
 FLASH_CASES = (
@@ -1874,6 +1904,12 @@ FLASH_CASES = (
     ("q_offset 3072, S<T", dict(PREFILL, S=1024), "bf16", dict(causal=True, q_offset=3072)),
     ("not causal", dict(PREFILL, B=1, S=2048, T=2048), "bf16", dict(causal=False)),
     ("tail S=T=4095", dict(PREFILL, S=4095, T=4095), "bf16", dict(causal=True)),
+    # whisper-tiny's encoder (T = 1500 = 11 * 128 + 92 frames) and cross-attention:
+    # non-causal, so the kernel itself must keep the last key tile's pad columns out
+    ("whisper encoder, T=1500", WHISPER_ENC, "bf16", dict(causal=False)),
+    ("whisper cross, S=448, T=1500", dict(WHISPER_ENC, S=448), "bf16", dict(causal=False)),
+    ("fp32 whisper encoder, T=1500", WHISPER_ENC, "fp32", dict(causal=False)),
+    ("fp32 whisper cross, S=448, T=1500", dict(WHISPER_ENC, S=448), "fp32", dict(causal=False)),
     ("fp32 small", dict(B=2, S=512, T=512, H=8, KV=2, D=128), "fp32", dict(causal=True)),
     ("fp32 window, tail", dict(B=1, S=333, T=333, H=4, KV=1, D=64), "fp32", dict(causal=True, window=100)),
 )
@@ -1887,6 +1923,8 @@ RMS_CASES = (
     ("odd D=4097", (1000, 4097), "fp32"),
     ("mamba2 d_model D=2560", (2, 4096, 2560), "bf16"),
     ("mamba2 gated D=5120", (2, 4096, 5120), "bf16"),
+    ("whisper D=384", (8, 1500, 384), "bf16"),
+    ("internvl2 D=2048", (2, 5120, 2048), "bf16"),
 )
 # The tensor-core instances against the mirrors of their own arithmetic:
 # every element of the output within two bf16 units in the last place of the
@@ -2184,27 +2222,34 @@ def _sync_s(fn):
 
 
 class _recording:
-    """Record the input of every block of ``lm_forward`` and the last
-    block's output: ``xs[l]`` enters layer l, ``xs[-1]`` leaves the last."""
+    """Record the input of every block of ``lm_forward`` (or of every
+    encoder, then decoder, layer of ``encdec_forward``) and the last block's
+    output: ``xs[l]`` enters layer l, ``xs[-1]`` leaves the last."""
 
     def __init__(self):
+        from repro_torch.models import encdec as E
         from repro_torch.models import transformer as T
 
-        self.T, self.xs = T, []
+        self.sites, self.xs = ((T, "_block_fwd"), (E, "_enc_layer"), (E, "_dec_layer")), []
 
     def __enter__(self):
-        orig = self.orig = self.T._block_fwd
+        self.orig = [getattr(mod, name) for mod, name in self.sites]
 
-        def rec(lp, x, *a):
-            self.xs.append(x)
-            self.out = orig(lp, x, *a)
-            return self.out
+        def wrap(orig):
+            def rec(lp, x, *a):
+                self.xs.append(x)
+                self.out = orig(lp, x, *a)
+                return self.out
 
-        self.T._block_fwd = rec
+            return rec
+
+        for (mod, name), orig in zip(self.sites, self.orig):
+            setattr(mod, name, wrap(orig))
         return self
 
     def __exit__(self, *exc):
-        self.T._block_fwd = self.orig
+        for (mod, name), orig in zip(self.sites, self.orig):
+            setattr(mod, name, orig)
         self.xs.append(self.out)
 
 
@@ -2337,7 +2382,14 @@ def _expected_launches(cfg):
     """Launches of one ``forward_step`` of ``cfg``: flash attention once an
     attention layer, the SSD scan once a mamba layer, RMSNorm on every norm
     (one per attention mixer, two per mamba mixer (ln, gn), one per MLP or
-    MoE block, and the final one)."""
+    MoE block, and the final one).  The encoder-decoder: flash attention
+    once an encoder layer and twice a decoder layer (self and cross), RMSNorm
+    twice an encoder layer, three times a decoder layer, and on ``enc_ln``
+    and ``final_ln``."""
+    if cfg.family == "audio":
+        n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
+        return {"relational": 0, "flash_attention": n_enc + 2 * n_dec, "ssd_scan": 0,
+                "rmsnorm": 2 * n_enc + 3 * n_dec + 2}
     mask = cfg.moe_layer_mask()
     kinds = cfg.pattern[:cfg.n_layers]
     return {"relational": 0,
@@ -2403,12 +2455,34 @@ class _kernels_on_plain_inputs:
         self.ops.flash_attention, self.ops.rmsnorm, self.ops.ssd = self.fa, self.rms, self.ssd
 
 
-def _decode_against_forward(model, params, tokens, logits, n: int):
+def _decode_norms(cfg):
+    """RMSNorm launches of one decode step: a forward's, but for the
+    encoder-decoder, whose step runs no encoder (three norms a decoder
+    layer and the final one)."""
+    return 3 * cfg.n_layers + 1 if cfg.family == "audio" else _expected_launches(cfg)["rmsnorm"]
+
+
+def _decode_against_forward(model, params, batch, logits, n: int):
     """(max abs difference, argmax agreements) of ``n`` decode steps' logits
-    against the forward's logits at the same positions."""
+    against the forward's logits at the same positions.  The VLM decodes
+    text only, so it is held to a text-only forward of the first ``n``
+    tokens; the encoder-decoder decodes with every layer's cross-KV filled
+    from ``_enc_kv`` of the encoder's states on these frames (the
+    reference's ``greedy_generate`` leaves them zero)."""
+    from repro_torch.models import encdec as E
     from repro_torch.serve import init_caches
 
+    cfg, tokens = model.cfg, batch["tokens"]
     caches = init_caches(model, tokens.shape[0], n)
+    if cfg.family == "vlm":
+        logits = model.forward(params, tokens[:, :n])
+    if cfg.family == "audio":
+        enc = E.encode(params, batch["frames"], cfg, attn_impl=model.attn_impl)
+        for i in range(cfg.n_layers):
+            k, v = E._enc_kv({name: t[i] for name, t in params["dec"]["cross"].items()}, enc, cfg)
+            caches["dec"]["cross_k"][i].copy_(k)
+            caches["dec"]["cross_v"][i].copy_(v)
+        del enc
     worst, agree = 0.0, 0
     for t in range(n):
         lg, caches = model.decode_step(params, caches, tokens[:, t], t)
@@ -2471,9 +2545,10 @@ def _log_profile(tag, what, prof):
         f"(idle share {prof['idle_share']:.4f}); device ms by kind: {kinds}; top kernels (ms): {top}")
 
 
-def _serve(tag, cfg, seed, control, control_what, extra=None):
+def _serve(tag, cfg, seed, control, control_what, extra=None, inputs=None):
     """Serve ``cfg`` at full width with weights drawn from ``seed``:
-    ``forward_step`` on 2 prompts of 4096 tokens through the
+    ``forward_step`` on ``inputs(gen)`` (by default 2 prompts of 4096
+    tokens) through the
     kernels (flash attention once an attention layer, the SSD scan once a
     mamba layer, RMSNorm on every norm), ``greedy_generate`` and decode
     timings, profiles, then the gates: the kernels on the plain path's
@@ -2485,9 +2560,11 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     logs the mirror path (``_against_mirrors``), and holds decode against a
     forward of ``cfg`` with capacity for every token (``capacity_factor =
     E / K``: decode drops none, a 4096-token forward at the config's factor
-    may), in max abs difference and in argmax agreements.  ``extra(model, plain, params,
-    gen)``, if given, runs last and returns launches to add to the phase's.
-    Every tensor of the run is freed when it returns."""
+    may), in max abs difference and in argmax agreements.  Then
+    ``Model.loss`` on the batch through the kernels is held to the plain
+    path's within LOSS_TOL.  ``extra(model, plain, params, gen)``, if given,
+    runs last and returns launches to add to the phase's.  Every tensor of
+    the run is freed when it returns."""
     import gc
 
     import torch
@@ -2505,14 +2582,22 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     model = build_model(cfg)  # attn_impl="auto": the kernels on the card
     plain = build_model(cfg, attn_impl="reference")
     expect = _expected_launches(cfg)
-    n_norms = expect["rmsnorm"]
     params, t_init = _sync_s(lambda: model.init(seed, device="cuda"))
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {n_params} parameters "
         f"(fp32, {n_params * 4 / 1e9:.1f} GB) drawn from seed {seed} in {t_init:.2f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
-    batch = {"tokens": torch.randint(2, cfg.vocab, (2, 4097), generator=gen, device="cuda")}
+    batch = (inputs(gen) if inputs is not None
+             else {"tokens": torch.randint(2, cfg.vocab, (2, 4097), generator=gen, device="cuda")})
+    B, S = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+    n_prefix = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    n_pos = B * (n_prefix + S)
+    what = f"{B} x {n_prefix + S} positions"
+    if n_prefix:
+        what += f" ({n_prefix} of them patches)"
+    if "frames" in batch:
+        what += f", {batch['frames'].shape[1]} frames a clip"
 
     _reset_counts()
     logits, t_fwd = _sync_s(lambda: model.forward_step(params, batch))
@@ -2524,10 +2609,10 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     if fwd_inst != {k: {"tc": expect[k], "fp32": 0} for k in fwd_inst}:
         fail(f"{tag}: forward_step's launches by instance {fwd_inst}: not all on the tensor-core "
              f"instance")
-    if tuple(logits.shape) != (2, 4096, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+    if tuple(logits.shape) != (B, n_prefix + S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"{tag}: forward logits of shape {tuple(logits.shape)} or not finite")
     _, t_fwd2 = _sync_s(lambda: model.forward_step(params, batch))
-    log(f"{tag}: forward_step on 2 x 4096 tokens: {t_fwd:.3f} s (first call), {t_fwd2:.3f} s "
+    log(f"{tag}: forward_step on {what}: {t_fwd:.3f} s (first call), {t_fwd2:.3f} s "
         f"(second); launches {fwd_counts}, by instance {fwd_inst}")
 
     prompts = torch.randint(2, cfg.vocab, (4, 128), generator=gen, device="cuda")
@@ -2540,7 +2625,7 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     t_full = min(t_full, _sync_s(lambda: greedy_generate(model, params, prompts, max_new_tokens=32))[1])
     gen_counts = _counts()
     steps = 2 * (128 + (128 + 31))
-    if gen_counts != dict({k: 0 for k in expect}, rmsnorm=steps * n_norms):
+    if gen_counts != dict({k: 0 for k in expect}, rmsnorm=steps * _decode_norms(cfg)):
         fail(f"{tag}: greedy_generate launched {gen_counts} over {steps} decode steps")
     if tuple(toks.shape) != (4, 32) or not torch.equal(toks[:, :1], first):
         fail(f"{tag}: greedy_generate's tokens have the wrong shape or first token")
@@ -2566,7 +2651,8 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     t_dec = min(_sync_s(lambda: decode_from(128, 31))[1], _sync_s(lambda: decode_from(128, 31))[1])
     decode_tps = 4 * 31 / t_dec
     log(f"{tag}: greedy_generate 4 x 128 prompt tokens: prefill (token by token) {t_prefill:.3f} s; "
-        f"with 32 new tokens {t_full:.3f} s; launches {gen_counts}")
+        f"with 32 new tokens {t_full:.3f} s; launches {gen_counts}"
+        + ("; against zero cross-KV, as the reference's" if cfg.family == "audio" else ""))
     log(f"{tag}: decode alone, 31 steps of 4 after the prompt: {t_dec:.3f} s, {decode_tps:.1f} "
         f"tokens/s ({t_dec / 31 * 1e3:.2f} ms a step)")
     log(f"{tag}: device memory high-water mark of serving (weights, forward_step, "
@@ -2600,7 +2686,6 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     log(f"{tag}: plain forward {t_plain:.3f} s (with the kernels run beside it); every layer's "
         f"kernel inputs through the kernels: worst distance in tolerances "
         + ", ".join(f"{k} {held.worst[k]:.3f} over {n} calls" for k, n in held_calls.items()))
-    n_pos = 2 * 4096
     log(f"{tag}: logits, kernels against plain, free running: max abs diff {diff:.4e} "
         f"({ratio:.2f} x tol {LOGIT_TOL}), argmax equal at {agree} of {n_pos}; control "
         f"({control_what}): {c_diff:.4e} ({c_ratio:.2f} x tol), argmax equal at {c_agree}")
@@ -2643,11 +2728,12 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
         logits_plain = build_model(nodrop, attn_impl="reference").forward_step(params, head)
         what = f"a forward with capacity factor {nodrop.moe.capacity_factor:g} (nothing dropped)"
     else:
-        what = "the forward"
-    dec, dec_agree = _decode_against_forward(model, params, batch["tokens"], logits, n_dec)
-    dec_plain, dec_plain_agree = _decode_against_forward(plain, params, batch["tokens"], logits_plain,
-                                                         n_dec)
-    n_dpos = 2 * n_dec
+        what = {"vlm": "the text-only forward",
+                "audio": "the forward (each layer's cross-KV filled from the encoder)"}.get(
+                    cfg.family, "the forward")
+    dec, dec_agree = _decode_against_forward(model, params, batch, logits, n_dec)
+    dec_plain, dec_plain_agree = _decode_against_forward(plain, params, batch, logits_plain, n_dec)
+    n_dpos = B * n_dec
     log(f"{tag}: decode steps 0..{n_dec - 1} against {what}'s logits: max abs diff {dec:.4e} on the "
         f"kernel path, {dec_plain:.4e} on the plain path; argmax equal at {dec_agree} and "
         f"{dec_plain_agree} of {n_dpos}")
@@ -2664,6 +2750,26 @@ def _serve(tag, cfg, seed, control, control_what, extra=None):
     log(f"{tag}: device memory high-water mark with the checks' recordings "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = {k: fwd_counts[k] + gen_counts[k] for k in fwd_counts}
+    _reset_counts()
+    got, t_loss = _sync_s(lambda: model.loss(params, batch))
+    loss_counts, loss_inst = _counts(), _instance_counts()
+    if loss_counts != expect or loss_inst != fwd_inst:
+        fail(f"{tag}: Model.loss launched {loss_counts}, {loss_inst}, expected {expect} "
+             f"on the tensor cores")
+    want = plain.loss(params, batch)
+    got, want = float(got), float(want)
+    tol = LOSS_TOL + LOSS_TOL * abs(want)
+    log(f"{tag}: Model.loss on the batch {got:.6f} through the kernels ({t_loss:.3f} s), "
+        f"{want:.6f} on the plain path: difference {abs(got - want):.3e} (tolerance {LOSS_TOL} + "
+        f"{LOSS_TOL} x |plain|)")
+    if not (abs(got - want) <= tol):
+        fail(f"{tag}: Model.loss through the kernels {got} parts from the plain path's {want} "
+             f"by more than {tol:.3e}")
+    for k in launches:
+        launches[k] += loss_counts[k]
+    for k, by_inst in loss_inst.items():
+        for inst, n in by_inst.items():
+            fwd_inst[k][inst] += n
     if extra is not None:
         del logits
         for k, n in extra(model, plain, params, gen).items():
@@ -2811,6 +2917,62 @@ def phase_serve_jamba(seed: int):
                   "the plain path with attention blocks of 256 and SSD chunks of 128")
 
 
+# -- 13. serve whisper-tiny, uncut ---------------------------------------------------
+
+WHISPER_CLIPS = 8
+WHISPER_TEXT = 448  # whisper's text context (arXiv:2212.04356)
+
+
+def phase_serve_whisper(seed: int):
+    """whisper-tiny at full size (4 + 4 layers, d 384, 6 heads of 64, d_ff
+    1536, vocab 51865, 1500 frames): 8 clips of seeded frames (the
+    frontend is a stub) with 448 decoder positions."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("whisper-tiny")
+
+    def inputs(gen):
+        frames = torch.randn((WHISPER_CLIPS, cfg.encoder.n_frames, cfg.encoder.d_frame),
+                             generator=gen, device="cuda").to(torch.bfloat16)
+        tokens = torch.randint(2, cfg.vocab, (WHISPER_CLIPS, WHISPER_TEXT + 1), generator=gen,
+                               device="cuda")
+        return {"frames": frames, "tokens": tokens}
+
+    return _serve("serve-whisper", cfg, seed,
+                  lambda: (_plain_blocks(256), build_model(cfg, attn_impl="reference")),
+                  "the plain path with attention blocks of 256 against 512",
+                  inputs=inputs)
+
+
+# -- 14. serve internvl2-2b, uncut ----------------------------------------------------
+
+
+def phase_serve_internvl2(seed: int):
+    """internvl2-2b at full size (24 layers, d 2048, 16/8 heads of 128, d_ff
+    8192, vocab 92553): 2 prompts of 1024 seeded patch embeddings of
+    d_vision 1024 (the ViT is a stub) and 4096 tokens."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("internvl2-2b")
+
+    def inputs(gen):
+        patches = torch.randn((2, cfg.vision.n_patches, cfg.vision.d_vision), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+        tokens = torch.randint(2, cfg.vocab, (2, 4097), generator=gen, device="cuda")
+        return {"tokens": tokens, "patch_embeds": patches}
+
+    return _serve("serve-internvl2", cfg, seed,
+                  lambda: (_plain_blocks(256), build_model(cfg, attn_impl="reference")),
+                  "the plain path with attention blocks of 256 against 512",
+                  inputs=inputs)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2847,7 +3009,9 @@ def main() -> int:
     mamba = phase_serve_mamba(args.seed)
     scout = phase_serve_scout(args.seed)
     jamba = phase_serve_jamba(args.seed)
-    serving = (serve, mamba, scout, jamba)
+    whisper = phase_serve_whisper(args.seed)
+    internvl2 = phase_serve_internvl2(args.seed)
+    serving = (serve, mamba, scout, jamba, whisper, internvl2)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",

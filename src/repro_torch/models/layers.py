@@ -76,6 +76,14 @@ def init_tree(defs, generator: torch.Generator, device) -> Dict[str, Any]:
     return out
 
 
+def zeros_tree(shapes, device) -> Dict[str, Any]:
+    """Zero tensors on ``device`` for a tree of ``(shape, dtype)`` leaves."""
+    if isinstance(shapes, dict):
+        return {k: zeros_tree(v, device) for k, v in shapes.items()}
+    shape, dtype = shapes
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 def stack_defs(defs, n: int):
     """Stacked (scan) variant: prepend a replicated leading axis of size n."""
     return tree_map(
@@ -115,6 +123,15 @@ def rope(
     xr1 = x1 * cos - x2 * sin
     xr2 = x2 * cos + x1 * sin
     return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
+
+
+def token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy: ``logsumexp`` over the fp32 logits
+    minus the label's logit, as the reference computes it."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

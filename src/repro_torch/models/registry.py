@@ -1,17 +1,19 @@
-"""Model facade for the dense, SSM (Mamba-2), MoE and hybrid LM families
-(the port of ``models/registry.py``).
+"""Uniform model facade over all six families (the port of
+``models/registry.py``): dense, SSM (Mamba-2), MoE, hybrid, audio
+(whisper's encoder-decoder, ``models/encdec.py``) and VLM (internvl2,
+``models/vlm.py``).
 
   model.init(seed, device="cuda")             real params on the device
   model.forward(params, tokens)               logits (B, S, V), bf16
   model.forward_step(params, batch)           serve-side prefill compute
+  model.loss(params, batch)                   mean next-token loss, fp32
   model.decode_step(params, caches, token, pos)
 
 ``attn_impl`` ("auto" | "cuda" | "reference", ``kernels/ops.py``) selects
 the flash attention, SSD scan and RMSNorm implementation.  It defaults to
 "auto": the hand-written kernels on CUDA tensors.  The reference defaults
-to its plain path; "reference" names the port's plain path.  The audio and
-VLM families, loss and training, ``remat`` and the sharding specs come with
-later slices.
+to its plain path; "reference" names the port's plain path.  Training,
+``remat`` and the sharding specs come with later slices.
 """
 
 from __future__ import annotations
@@ -23,15 +25,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import IMPLS
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
+from repro_torch.models import vlm as V
 from repro_torch.models.layers import init_tree, tree_leaves
 
 
-FAMILIES = ("dense", "ssm", "moe", "hybrid")
-LATER_SLICES = {
-    "audio": "the whisper and VLM slice, ROADMAP queue 1: models/encdec.py",
-    "vlm": "the whisper and VLM slice, ROADMAP queue 1: models/vlm.py",
-}
+FAMILIES = ("dense", "ssm", "moe", "hybrid", "audio", "vlm")
 
 
 def resolve_device(device) -> torch.device:
@@ -53,15 +53,16 @@ class Model:
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: family {self.cfg.family!r} comes with a later slice "
-                f"({LATER_SLICES.get(self.cfg.family, 'ROADMAP queue 1')}); the port serves "
-                f"the {', '.join(FAMILIES)} families")
+            raise ValueError(f"{self.cfg.name}: unknown family {self.cfg.family!r}; one of {FAMILIES}")
         if self.attn_impl not in IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}; one of {IMPLS}")
 
     # -- params ---------------------------------------------------------------
     def param_defs(self):
+        if self.cfg.family == "audio":
+            return E.encdec_param_defs(self.cfg)
+        if self.cfg.family == "vlm":
+            return V.vlm_param_defs(self.cfg)
         return T.lm_param_defs(self.cfg)
 
     def init(self, seed: Union[int, torch.Generator] = 0, *, device="cuda"):
@@ -76,14 +77,34 @@ class Model:
         return init_tree(self.param_defs(), gen, dev)
 
     # -- steps ----------------------------------------------------------------
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token loss (fp32 scalar) of ``batch["tokens"]`` (B, S + 1),
+        with ``frames`` (audio) or ``patch_embeds`` (VLM)."""
+        if self.cfg.family == "audio":
+            return E.encdec_loss(params, batch, self.cfg, attn_impl=self.attn_impl)
+        if self.cfg.family == "vlm":
+            return V.vlm_loss(params, batch, self.cfg, attn_impl=self.attn_impl)
+        return T.lm_loss(params, batch, self.cfg, attn_impl=self.attn_impl)
+
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return T.lm_forward(params, tokens, self.cfg, attn_impl=self.attn_impl)
 
     def forward_step(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Inference prefill: batch → logits (serve-side prefill compute)."""
-        return T.lm_forward(params, batch["tokens"][:, :-1], self.cfg, attn_impl=self.attn_impl)
+        """Inference prefill: batch → logits (serve-side prefill compute).
+        The VLM's logits cover the patches and the tokens."""
+        tokens = batch["tokens"][:, :-1]
+        if self.cfg.family == "audio":
+            return E.encdec_forward(params, batch["frames"], tokens, self.cfg,
+                                    attn_impl=self.attn_impl)
+        prefix = None
+        if self.cfg.family == "vlm":
+            prefix = V.project_patches(params, batch["patch_embeds"])
+        return T.lm_forward(params, tokens, self.cfg, attn_impl=self.attn_impl,
+                            prefix_embeds=prefix)
 
     def decode_step(self, params, caches, token, pos):
+        if self.cfg.family == "audio":
+            return E.encdec_decode_step(params, caches, token, pos, self.cfg, impl=self.attn_impl)
         return T.lm_decode_step(params, caches, token, pos, self.cfg, impl=self.attn_impl)
 
     def serve_step_fn(self) -> Callable:
@@ -91,6 +112,12 @@ class Model:
             return self.decode_step(params, caches, token, pos)
 
         return serve_step
+
+    def loss_fn(self) -> Callable:
+        def loss(params, batch):
+            return self.loss(params, batch)
+
+        return loss
 
     def n_params(self) -> int:
         total = 0

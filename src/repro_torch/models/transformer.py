@@ -1,5 +1,6 @@
 """Decoder-only LM assembled from the per-layer pattern (the port of
-``models/transformer.py``: the dense, Mamba-2 SSM, MoE and hybrid families).
+``models/transformer.py``: the dense, Mamba-2 SSM, MoE and hybrid families,
+and the VLM's backbone).
 
 The parameter tree keeps the reference's keys: ``embed``, ``final_ln``,
 ``lm_head`` (untied archs), the stacked ``scan`` whose leaves carry a leading
@@ -11,7 +12,7 @@ has an ``ffn_moe`` (``models/moe.py``) in place of its dense ``ffn``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -19,7 +20,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, tree_map
+from repro_torch.models.layers import (PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, token_loss,
+                                       tree_map, zeros_tree)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -115,14 +117,32 @@ def lm_forward(
     cfg: ArchConfig,
     *,
     attn_impl: str = "auto",
+    prefix_embeds: Optional[torch.Tensor] = None,  # (B, Sp, d) VLM patches
 ) -> torch.Tensor:
-    """Logits (B, S, V) in bf16."""
+    """Logits (B, Sp + S, V) in bf16.  A prefix (the VLM's projected
+    patches) goes before the token embeddings in bf16; positions and the
+    causal mask run over the whole sequence."""
     x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(COMPUTE_DTYPE), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     for kind, lp, _ in _layers(params, cfg):
         x = _block_fwd(lp, x, cfg, kind, positions, attn_impl)
     x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
     return dense(x, _head(params, cfg))
+
+
+@torch.no_grad()
+def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            attn_impl: str = "auto") -> torch.Tensor:
+    """Mean next-token loss of ``batch["tokens"]`` (B, S + 1); a
+    ``prefix_embeds`` in the batch (the VLM's) is run and left out of it."""
+    tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
+    logits = lm_forward(params, tokens[:, :-1], cfg, attn_impl=attn_impl, prefix_embeds=prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    return token_loss(logits, tokens[:, 1:])
 
 
 # ---------------------------------------------------------------------------
@@ -198,13 +218,7 @@ def lm_decode_step(
 
 def init_cache_tree(cfg: ArchConfig, batch: int, cache_len: int, device) -> Dict[str, Any]:
     """Zero caches of ``lm_cache_shapes`` on ``device``."""
-    def zeros(node):
-        if isinstance(node, dict):
-            return {k: zeros(v) for k, v in node.items()}
-        shape, dtype = node
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    return zeros(lm_cache_shapes(cfg, batch, cache_len))
+    return zeros_tree(lm_cache_shapes(cfg, batch, cache_len), device)
 
 
 @torch.no_grad()

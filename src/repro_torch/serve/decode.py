@@ -7,7 +7,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import zeros_tree
 from repro_torch.models.registry import Model
 
 
@@ -15,8 +17,14 @@ def init_caches(model: Model, batch: int, cache_len: int, device="cuda"):
     """Zero caches for ``batch`` sequences of up to ``cache_len`` tokens, in
     the layout of ``lm_cache_shapes``: bf16 K/V for attention layers; for
     mamba layers the bf16 conv buffer and the fp32 SSM state (whose size
-    does not depend on ``cache_len``)."""
-    return T.init_cache_tree(model.cfg, batch, cache_len, device)
+    does not depend on ``cache_len``).  The audio family's are those of
+    ``encdec_cache_shapes``: the decoder's K/V and bf16 cross K/V over the
+    encoder's frames, zero as in the reference, which runs no encoder
+    before decoding."""
+    cfg = model.cfg
+    if cfg.family == "audio":
+        return zeros_tree(E.encdec_cache_shapes(cfg, batch, cache_len), device)
+    return T.init_cache_tree(cfg, batch, cache_len, device)
 
 
 @torch.no_grad()

@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys, repro_torch, repro_torch.carry, repro_torch.api.serialize\n"
         "import repro_torch.data, repro_torch.data.pipeline, repro_torch.models.moe\n"
+        "import repro_torch.models.encdec, repro_torch.models.vlm\n"
         "import repro_torch.engine.plane.torch_plane, repro_torch.kernels.relational\n"
         "import repro_torch.configs, repro_torch.models.registry, repro_torch.serve.decode\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rmsnorm\n"

@@ -178,6 +178,32 @@ def test_flash_tc_kernel_matches_its_mirror(case):
     _tc_close(got, ref.flash_attention_tc_reference(q, k, v, **case))
 
 
+# whisper-tiny's non-causal launches: its encoder's self-attention over
+# T = 1500 = 11 * 128 + 92 frames, and the decoder's 448 positions over them
+WHISPER_FLASH_CASES = [
+    dict(B=8, S=1500, T=1500, H=6, KV=6, D=64),
+    dict(B=8, S=448, T=1500, H=6, KV=6, D=64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", WHISPER_FLASH_CASES, ids=lambda c: f"S{c['S']}-T{c['T']}")
+def test_flash_kernel_not_causal_at_whisper_shapes(shape, dtype, tol):
+    """No key past T reaches the softmax: the kernel masks the padded
+    columns of the last key tile itself when no causal mask hides them."""
+    _cuda()
+    q, k, v = _qkv("cuda", dtype, seed=shape["S"] + 2, **shape)
+    before = _instance_counts(flash_attention)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _instance_counts(flash_attention) == _one_more(before, dtype)
+    want = ref.flash_attention_reference(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        _tc_close(got, ref.flash_attention_tc_reference(q, k, v, causal=False))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (17, 4096), (4, 1, 5376), (2, 12288), (5, 4097)])

@@ -5,12 +5,15 @@ For the reduced llama3-8b, gemma3-27b, glm4-9b, command-r-plus-104b,
 mamba2-2.7b, llama4-scout, llama4-maverick and jamba, the reference's ``Model.init`` parameters are carried to the
 port with ``params_from_reference``; then the port's forward logits (plain
 path on the host) are held to the reference's ``attn_impl="reference"``
-forward, and its decode-step logits to the reference's over 16 positions.
+forward, its decode-step logits to the reference's over 16 positions, and
+``Model.loss`` to the reference's ``lm_loss``.
 Both compute in bf16: atol = rtol = 2e-2.  Parameter counts of the full-size
 configs must equal the reference's.  The mamba block's pieces whose
 semantics are easy to miss (the causal conv, the softplus of ``dt``, the
 decode step's conv buffer) are held to ``repro.models.ssm`` on their own.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -190,10 +193,25 @@ def test_configs_are_the_reference_configs():
             assert getattr(cfg.with_reduced(), field) == getattr(ref.with_reduced(), field), (name, field)
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
-def test_families_of_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(get_arch(arch).with_reduced())
+def test_build_model_builds_every_config():
+    for name, cfg in ARCHS.items():
+        model = build_model(cfg)
+        assert model.n_params() == ref_build(ref_arch(name)).n_params(), name
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_arch("llama3-8b"), family="speech"))
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_loss_matches_reference(arch):
+    """``Model.loss`` (the fp32 log-sum-exp over the forward's logits less
+    the label's logit, averaged) against the reference's ``lm_loss``."""
+    rm, rp, pm, pp = _pair(arch, seed=8)
+    toks = _tokens(rm.cfg.vocab, (2, 33), seed=9)
+    want = float(rm.loss(rp, {"tokens": jnp.asarray(toks)}))
+    got = pm.loss(pp, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), want, atol=TOL, rtol=TOL)
+    assert pm.loss_fn()(pp, {"tokens": torch.from_numpy(toks)}) == got
 
 
 def _bf16(a):
