@@ -9,10 +9,11 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles the six kernel sources of ``src/repro_torch/csrc/``
+  2. build       compiles the eight kernel sources of ``src/repro_torch/csrc/``
                  (relational, rmsnorm, flash_attention and ssd_scan for fp32,
                  flash_attention_sm90 and ssd_scan_sm90 for bf16 on the
-                 tensor cores), one nvcc each, all started together.
+                 tensor cores, and the backward kernels flash_attention_bwd
+                 and rmsnorm_bwd), one nvcc each, all started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -202,14 +203,44 @@ Phases (any failure exits non-zero and prints no result):
                  ``forward_step`` on 2 x (1024 patches + 4096 tokens), the
                  steps of phase 9, text-only ``greedy_generate``, decode
                  held against the text-only forward.
-  15. report     one JSON line of kernels (launches summed over the six
-                 serving paths, the relational kernel's over phases 4, 7,
-                 7b's service and 7c's manager; relational, flash attention
-                 and the SSD scan also by instance), the card's name and
-                 power limit, then the result line.
+  15. train     (a) llama3-8b at full width (d 4096, 32/8 heads of 128,
+                 d_ff 14,336, vocab 128,256) cut to its first 4 of 32 layers
+                 (1,923,125,248 parameters), fp32 weights from --seed, on 2 x
+                 4096 tokens: ``train.loss_and_grads`` through the kernels
+                 (remat on: per step 8 flash forward launches, all of the
+                 tensor-core instance, 4 flash backward, 17 RMSNorm forward
+                 and 9 backward) against the plain path beside a control (the
+                 plain path with attention blocks of 256): the loss within
+                 LOSS_TOL + LOSS_TOL x |loss|, each leaf's relative L2
+                 gradient error within 2x the control's (floor GRAD_FLOOR),
+                 compared leaf by leaf; both backward kernels held to their
+                 plain versions on layer 0's own tensors, bf16 as they ran
+                 and fp32 (MIRROR_ATOL / BWD_FP32_TOL) and timed beside their
+                 plain versions, SDPA's backward and autograd through
+                 ``F.rms_norm``; then TRAIN_STEPS AdamW steps through
+                 ``make_train_step`` on one repeated batch (the loss must
+                 fall), step wall time, tokens/s, the high-water mark, a
+                 profiled step (device ms by kind, idle share) and a logged
+                 step with ``microbatches=2``.  (b) whisper-tiny at full
+                 size, one step on 8 clips of 1500 frames with 448 decoder
+                 positions (non-causal attention, S != T, T = 11 x 128 +
+                 92 in the backward kernel), gated as (a).  (c)
+                 ``fit_with_restarts`` on the training twin's config (d 512,
+                 8 layers, vocab 50,304) with an asynchronous
+                 ``CheckpointManager`` under ``build/``: a failure at step 6,
+                 checkpoints every 4 steps, 12 steps; it must resume from
+                 step 4 and the final checkpoint must restore bit for bit
+                 onto the live parameters; the objects kept against leaves
+                 x saves show the dedup.
+  16. report     one JSON line of kernels (launches summed over the six
+                 serving paths and phase 15's training steps, the
+                 relational kernel's over phases 4, 7, 7b's service and
+                 7c's manager, the backward kernels' over 15a-b; relational,
+                 flash attention and the SSD scan also by instance), the
+                 card's name and power limit, then the result line.
 
-Options: ``--seed N`` (default 0) seeds the serving phase's weights and
-tokens.
+Options: ``--seed N`` (default 0) seeds the serving and training phases'
+weights and tokens.
 """
 
 from __future__ import annotations
@@ -278,6 +309,7 @@ def _kernel_modules():
 def _reset_counts():
     R, RMS, FA, SS = _kernel_modules()
     R.relational.launches = RMS.rmsnorm.launches = 0
+    FA.flash_attention_bwd.launches = RMS.rmsnorm_bwd.launches = 0
     for route in R.relational.launches_by_instance:
         R.relational.launches_by_instance[route] = 0
     for w in (FA.flash_attention, SS.ssd_scan):
@@ -287,7 +319,9 @@ def _reset_counts():
 def _counts():
     R, RMS, FA, SS = _kernel_modules()
     return {"relational": R.relational.launches, "rmsnorm": RMS.rmsnorm.launches,
-            "flash_attention": FA.flash_attention.launches, "ssd_scan": SS.ssd_scan.launches}
+            "flash_attention": FA.flash_attention.launches, "ssd_scan": SS.ssd_scan.launches,
+            "flash_attention_bwd": FA.flash_attention_bwd.launches,
+            "rmsnorm_bwd": RMS.rmsnorm_bwd.launches}
 
 
 def _instance_counts():
@@ -309,7 +343,8 @@ def phase_build():
 
     R, RMS, FA, SS = _kernel_modules()
     t0 = time.perf_counter()
-    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, FA.SOURCE_TC, SS.SOURCE, SS.SOURCE_TC)
+    infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, FA.SOURCE_TC, SS.SOURCE, SS.SOURCE_TC,
+                         FA.SOURCE_BWD, RMS.SOURCE_BWD)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
@@ -318,6 +353,7 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
     # load each and check the relational plan layout against the source
     R._library(), RMS._library(), FA._library(), FA._library_tc(), SS._library(), SS._library_tc()
+    FA._library_bwd(), RMS._library_bwd()
     log(f"build: all kernels in {wall:.2f} s of wall time")
     return {"seconds": wall}
 
@@ -2389,14 +2425,15 @@ def _expected_launches(cfg):
     if cfg.family == "audio":
         n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
         return {"relational": 0, "flash_attention": n_enc + 2 * n_dec, "ssd_scan": 0,
-                "rmsnorm": 2 * n_enc + 3 * n_dec + 2}
+                "rmsnorm": 2 * n_enc + 3 * n_dec + 2, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
     mask = cfg.moe_layer_mask()
     kinds = cfg.pattern[:cfg.n_layers]
     return {"relational": 0,
             "flash_attention": sum(k != "mamba" for k in kinds),
             "ssd_scan": sum(k == "mamba" for k in kinds),
             "rmsnorm": 1 + sum((2 if k == "mamba" else 1) + (1 if mask[i] or cfg.d_ff > 0 else 0)
-                               for i, k in enumerate(kinds))}
+                               for i, k in enumerate(kinds)),
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 class _kernels_on_plain_inputs:
@@ -2973,6 +3010,444 @@ def phase_serve_internvl2(seed: int):
                   inputs=inputs)
 
 
+# -- 15. training on the card ---------------------------------------------------------
+
+# llama3-8b at full width cut to 4 of its 32 layers (1,923,125,248 parameters):
+# fp32 master weights, gradients and both Adam moments take 30.8 GB, the
+# step-entry bf16 copy 3.8 GB and the loss head ~12 GB; 8 layers would need
+# ~74 GB before any check runs
+TRAIN_LAYERS = 4
+TRAIN_TOKENS = (2, 4097)  # the prefill shape of phase 8: the backward is timed where the forward is
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-4
+# each leaf's relative L2 gradient error (kernels against the plain path)
+# within CONTROL_FACTOR x the control's (the plain path with attention blocks
+# of 256), or GRAD_FLOOR where the control is smaller
+GRAD_FLOOR = 1e-3
+# a backward kernel against its plain version on the same inputs: bf16 every
+# element within two bf16 units in the last place of the plain value plus
+# MIRROR_ATOL x the largest plain |value| (a gradient's scale is arbitrary:
+# the loss's is ~1e-5 here); fp32 within BWD_FP32_TOL x the largest |value|
+BWD_FP32_TOL = 1e-5
+RESTART_STEPS = 12
+RESTART_FAIL_AT = 6
+RESTART_EVERY = 4
+# device-time kinds of a training step, by kernel-name substring (first match)
+TRAIN_KINDS = (
+    ("flash_attention_bwd", ("flash_bwd_", "delta_kernel")),
+    ("flash_attention_fwd", ("flash_fwd_",)),
+    ("rmsnorm_bwd", ("rmsnorm_bwd_",)),
+    ("rmsnorm_fwd", ("rmsnorm_kernel",)),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "wgmma", "sm90_")),
+    ("copy_cast", ("copy", "memcpy", "memset")),
+)
+
+
+def _expected_train_launches(cfg):
+    """Kernel launches of one training step of ``cfg`` (``remat`` on): each
+    checkpointed layer runs its forward twice (the step, the recompute) and
+    its backward once; whisper's encoder and the final norms are not
+    checkpointed (as the reference's), so they run forward once."""
+    f = _expected_launches(cfg)
+    if cfg.family == "audio":
+        n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
+        fwd = {"flash_attention": n_enc + 2 * (2 * n_dec), "rmsnorm": 2 * n_enc + 1 + 2 * (3 * n_dec) + 1}
+    else:
+        fwd = {"flash_attention": 2 * f["flash_attention"], "rmsnorm": 2 * (f["rmsnorm"] - 1) + 1}
+    return dict(f, **fwd, flash_attention_bwd=f["flash_attention"], rmsnorm_bwd=f["rmsnorm"])
+
+
+class _last_bwd_inputs:
+    """Keep the inputs of the last flash attention and RMSNorm backward
+    launch of a step: the backward runs the layers in reverse, so these are
+    layer 0's attention and its first norm (the encoder's first layer, for
+    the encoder-decoder)."""
+
+    def __enter__(self):
+        _, RMS, FA, _ = _kernel_modules()
+        self.FA, self.RMS, self.fa, self.rms = FA, RMS, FA.flash_attention_bwd, RMS.rmsnorm_bwd
+        self.flash = self.norm = None
+
+        def fa(q, k, v, out, lse, g, **masks):
+            self.flash = tuple(t.detach() for t in (q, k, v, out, lse, g)) + (masks,)
+            return self.fa(q, k, v, out, lse, g, **masks)
+
+        def rms(x, w, g, eps=1e-5):
+            self.norm = tuple(t.detach() for t in (x, w, g)) + (eps,)
+            return self.rms(x, w, g, eps)
+
+        # a wrapper launches through the original, which counts on the
+        # module's name for itself, the stand-in while recording
+        fa.launches = rms.launches = 0
+        FA.flash_attention_bwd, RMS.rmsnorm_bwd = self.stand_ins = fa, rms
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.launches += self.stand_ins[0].launches
+        self.rms.launches += self.stand_ins[1].launches
+        self.FA.flash_attention_bwd, self.RMS.rmsnorm_bwd = self.fa, self.rms
+
+
+def _bwd_gap(got, want):
+    """(max abs difference, whether it is within the backward kernels'
+    tolerance): bf16 two units in the last place + MIRROR_ATOL x max |want|,
+    fp32 BWD_FP32_TOL x max |want|."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    scale = float(w.abs().max()) or 1.0
+    if got.dtype == torch.float32:
+        return float(d.max()), float(d.max()) <= BWD_FP32_TOL * scale
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return float(d.max()), bool((d <= 2 * ulp + MIRROR_ATOL * scale).all())
+
+
+def _check_bwd_kernels(tag, rec):
+    """Both backward kernels against their plain versions on the main path's
+    own tensors (``rec``: layer 0's), in bf16 as they ran and in fp32 (the
+    inputs cast up, the fp32 forward instance's o and lse).  Returns the
+    largest difference of each kernel."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    _, RMS, FA, _ = _kernel_modules()
+    q, k, v, o, lse, g, masks = rec.flash
+    x, w, gx, eps = rec.norm
+    worst = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    up = [t.float() for t in (q, k, v, g)]
+    o32, lse32 = FA._launch(*up[:3], masks["causal"], masks["window"], masks["chunk"], masks["q_offset"],
+                            with_lse=True)
+    for dt, args in (("bf16", (q, k, v, o, lse, g)), ("fp32", (*up[:3], o32, lse32, up[3]))):
+        got = FA.flash_attention_bwd(*args, **masks)
+        want = ref.flash_attention_bwd_reference(*args, **masks)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, ok = _bwd_gap(a, b)
+            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
+            log(f"{tag}: flash attention backward {dt} {what} {tuple(a.shape)} {masks}: max abs err "
+                f"{err:.3e} (largest |plain| {float(b.float().abs().max()):.3e})")
+            if not ok:
+                fail(f"{tag}: flash attention backward {dt} {what} parts from its plain version by {err:.3e}")
+        del got, want
+    for dt, args in (("bf16", (x, w, gx)), ("fp32", (x.float(), w, gx.float()))):
+        got = RMS.rmsnorm_bwd(*args, eps)
+        want = ref.rmsnorm_bwd_reference(*args, eps)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("dx", "dw"), got, want):
+            err, ok = _bwd_gap(a, b)
+            worst["rmsnorm_bwd"] = max(worst["rmsnorm_bwd"], err)
+            log(f"{tag}: rmsnorm backward {dt} {what} {tuple(a.shape)}: max abs err {err:.3e} "
+                f"(largest |plain| {float(b.float().abs().max()):.3e})")
+            if not ok:
+                fail(f"{tag}: rmsnorm backward {dt} {what} parts from its plain version by {err:.3e}")
+    del up, o32, lse32
+    return worst
+
+
+def _time_bwd_kernels(tag, rec):
+    """Each backward kernel timed on layer 0's tensors beside its plain
+    version, its library call (SDPA's backward alone; autograd through
+    ``F.rms_norm``) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    _, RMS, FA, _ = _kernel_modules()
+    q, k, v, o, lse, g, masks = rec.flash
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, o, lse, g, **masks)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, lse, g, dq, dk, dv))
+    pairs = B * H * _visible_pairs(S, T, masks["causal"], masks["window"], masks["chunk"], masks["q_offset"])
+    bound, by = _bound_ms(nbytes, 10 * D * pairs, BF16_TENSOR_FLOP_PER_S)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=masks["causal"], enable_gqa=True)
+    gt = g.transpose(1, 2)
+    fa = {"ms": _time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, g, **masks)),
+          "plain_ms": _time_ms(lambda: ref.flash_attention_bwd_reference(q, k, v, o, lse, g, **masks), reps=3),
+          "library_ms": _time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True)),
+          "bound_ms": bound, "bound_by": by}
+    log(f"{tag}: flash attention backward at B={B} S={S} T={T} H={H} KV={k.shape[2]} D={D} {q.dtype} "
+        f"{masks}: kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms, SDPA backward "
+        f"{fa['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {pairs} visible pairs, {nbytes} bytes); "
+        f"kernel at {10 * D * pairs / fa['ms'] / 1e9:.2f} TFLOP/s of the least work")
+    del dq, dk, dv, qt, kt, vt, lib_out
+    x, w, gx, eps = rec.norm
+    dx, dw = RMS.rmsnorm_bwd(x, w, gx, eps)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, gx, dx, dw))
+    bound, by = _bound_ms(nbytes, 8 * x.numel(), FP32_FLOP_PER_S)
+    xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+    yl = F.rms_norm(xl, (x.shape[-1],), wl, eps)
+    rms = {"ms": _time_ms(lambda: RMS.rmsnorm_bwd(x, w, gx, eps)),
+           "plain_ms": _time_ms(lambda: ref.rmsnorm_bwd_reference(x, w, gx, eps)),
+           "library_ms": _time_ms(lambda: torch.autograd.grad(yl, (xl, wl), gx, retain_graph=True)),
+           "bound_ms": bound, "bound_by": by}
+    log(f"{tag}: rmsnorm backward at {tuple(x.shape)} {x.dtype}: kernel {rms['ms']:.4f} ms, plain "
+        f"{rms['plain_ms']:.4f} ms, autograd through F.rms_norm {rms['library_ms']:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); kernel at {nbytes / rms['ms'] / 1e9:.2f} TB/s")
+    return {"flash_attention_bwd": fa, "rmsnorm_bwd": rms}
+
+
+def _grad_gate(tag, model, plain, params, batch, control):
+    """Loss and gradients through the kernels against the plain path's, leaf
+    by leaf, beside ``control()`` (a context in which the plain path sums in
+    another order): the loss within LOSS_TOL + LOSS_TOL x |plain|, each
+    leaf's relative L2 error within CONTROL_FACTOR x the control's or
+    GRAD_FLOOR.  One gradient set is freed before the next is made.  Returns
+    the kernel path's step launches and the layer-0 backward inputs."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import loss_and_grads
+
+    def rel(a, b):
+        return {p: float((a[p] - b[p]).norm() / b[p].norm().clamp_min(1e-30)) for p in b}
+
+    _reset_counts()
+    with _last_bwd_inputs() as rec:
+        (loss_k, g_k), t_k = _sync_s(lambda: loss_and_grads(model, params, batch))
+    counts, inst = _counts(), _instance_counts()
+    g_k = dict(tree_leaves(g_k))
+    _reset_counts()
+    (loss_p, g_p), t_p = _sync_s(lambda: loss_and_grads(plain, params, batch))
+    g_p = dict(tree_leaves(g_p))
+    err_k = rel(g_k, g_p)
+    del g_k
+    with control():
+        loss_c, g_c = loss_and_grads(plain, params, batch)
+    if any(_counts().values()):
+        fail(f"{tag}: the plain path launched a kernel: {_counts()}")
+    g_c = dict(tree_leaves(g_c))
+    err_c = rel(g_c, g_p)
+    del g_c, g_p
+    loss_k, loss_p, loss_c = float(loss_k), float(loss_p), float(loss_c)
+    tol = LOSS_TOL + LOSS_TOL * abs(loss_p)
+    log(f"{tag}: loss and gradients through the kernels {t_k:.3f} s, on the plain path {t_p:.3f} s; "
+        f"loss {loss_k:.6f} (kernels), {loss_p:.6f} (plain), {loss_c:.6f} (control): difference "
+        f"{abs(loss_k - loss_p):.3e}, control {abs(loss_c - loss_p):.3e} (tolerance {tol:.3e})")
+    if not abs(loss_k - loss_p) <= tol:
+        fail(f"{tag}: the loss through the kernels {loss_k} parts from the plain path's {loss_p}")
+    ratio = {p: err_k[p] / max(CONTROL_FACTOR * err_c[p], GRAD_FLOOR) for p in err_k}
+    worst = sorted(ratio, key=ratio.get, reverse=True)
+    log(f"{tag}: relative L2 gradient error per leaf, kernels (control) against plain, worst of "
+        f"{len(ratio)} leaves in units of the gate: "
+        + "; ".join(f"{p} {err_k[p]:.3e} ({err_c[p]:.3e}) {ratio[p]:.3f}" for p in worst[:6])
+        + f"; median kernels {statistics.median(err_k.values()):.3e}, control "
+          f"{statistics.median(err_c.values()):.3e}")
+    bad = [p for p in worst if ratio[p] > 1.0]
+    if bad:
+        fail(f"{tag}: gradients through the kernels part from the plain path by more than "
+             f"{CONTROL_FACTOR} x the control (floor {GRAD_FLOOR}) at {len(bad)} leaves, first {bad[:4]}")
+    return counts, inst, rec, loss_p
+
+
+def _check_step_launches(tag, cfg, counts, inst, steps=1):
+    want = {k: steps * n for k, n in _expected_train_launches(cfg).items()}
+    if counts != want:
+        fail(f"{tag}: {steps} training step(s) launched {counts}, expected {want}")
+    if inst["flash_attention"] != {"tc": want["flash_attention"], "fp32": 0}:
+        fail(f"{tag}: the training forward's flash launches by instance {inst['flash_attention']}: "
+             f"not all on the tensor-core instance")
+
+
+def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
+    """Train ``cfg`` from weights drawn from ``seed``: the loss and gradient
+    gate (``_grad_gate``), both backward kernels held to their plain versions
+    on layer 0's tensors (and timed, with ``time_kernels``), then ``steps``
+    AdamW steps through
+    ``make_train_step`` on one repeated batch (the main path: launches
+    counted from 0 around it, the loss must fall when ``steps`` > 1), one
+    profiled step, and a step with ``microbatches=2`` (logged).  Frees every
+    tensor when it returns."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamW, AdamWConfig, loss_and_grads, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, plain = build_model(cfg), build_model(cfg, attn_impl="reference")
+    params, t_init = _sync_s(lambda: model.init(seed, device="cuda"))
+    n_params = model.n_params()
+    log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {n_params} parameters (fp32 "
+        f"{n_params * 4 / 1e9:.2f} GB; with gradients and both moments {n_params * 16 / 1e9:.2f} GB) "
+        f"drawn from seed {seed} in {t_init:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    batch = batch_fn(gen)
+    tokens = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
+
+    counts, inst, rec, loss_plain = _grad_gate(tag, model, plain, params, batch, control)
+    _check_step_launches(tag, cfg, counts, inst)
+    worst = _check_bwd_kernels(tag, rec)
+    timing = _time_bwd_kernels(tag, rec) if time_kernels else None
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamW(AdamWConfig(lr=TRAIN_LR, warmup_steps=1, zero1=False))
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    _reset_counts()
+    for _ in range(steps):
+        (params, state, metrics), dt = _sync_s(lambda: step(params, state, batch))
+        losses.append(float(metrics["loss"]))
+        times.append(dt)
+    launches, launches_inst = _counts(), _instance_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_step_launches(tag, cfg, launches, launches_inst, steps)
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        fail(f"{tag}: a step's loss is not finite: {losses}")
+    if steps > 1 and not losses[-1] < losses[0]:
+        fail(f"{tag}: the loss did not fall over {steps} AdamW steps on one batch: {losses}")
+    if abs(losses[0] - loss_plain) > LOSS_TOL + LOSS_TOL * abs(loss_plain):
+        fail(f"{tag}: the first step's loss {losses[0]} parts from the plain path's {loss_plain}")
+    best = min(times[1:]) if steps > 1 else times[0]
+    log(f"{tag}: {steps} AdamW step(s) (lr {TRAIN_LR}) on one batch of {tokens} tokens: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; step wall times "
+        + ", ".join(f"{t:.3f}" for t in times) + f" s; {tokens / best:.1f} tokens/s at the fastest "
+        f"step after the first; launches {launches}; device memory high-water mark {peak / 2**30:.2f} "
+        f"GiB ({peak} bytes)")
+
+    # where a step's time goes: the loss and gradients, then the update, each profiled
+    holder = {}
+
+    def grads_part():
+        holder["lg"] = loss_and_grads(model, params, batch)
+
+    prof = _device_profile(grads_part, TRAIN_KINDS, top=8)
+    _log_profile(tag, "profiled loss and gradients (a step's forward, recompute and backward)", prof)
+    upd = _device_profile(lambda: opt.update(params, holder["lg"][1], state), TRAIN_KINDS, top=4)
+    _log_profile(tag, "profiled AdamW update (the optimizer's elementwise passes)", upd)
+    del holder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # microbatching, logged: the loss of the current parameters on the full
+    # batch and in two microbatches, and the two-microbatch step's high-water
+    if batch["tokens"].shape[0] % 2 == 0:
+        full, _ = loss_and_grads(model, params, batch)
+        full = float(full)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, m2 = make_train_step(model, opt, microbatches=2)(params, state, batch)
+        log(f"{tag}: one step with microbatches=2: loss {float(m2['loss']):.6f} against {full:.6f} on "
+            f"the full batch (difference {abs(float(m2['loss']) - full):.3e}); high-water "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out = {"launches": launches, "instances": launches_inst, "worst": worst, "timing": timing,
+           "losses": losses, "step_s": best, "peak_bytes": peak}
+    del params, state, batch, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(seed: int):
+    """15a: llama3-8b at full width (d 4096, 32/8 heads of 128, d_ff 14,336,
+    vocab 128,256) cut to its first TRAIN_LAYERS of 32 layers, on 2 x 4096
+    tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    base = get_arch("llama3-8b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS, pattern=base.pattern[:TRAIN_LAYERS])
+    return _train_cell(
+        "train", cfg, seed,
+        lambda gen: {"tokens": torch.randint(2, cfg.vocab, TRAIN_TOKENS, generator=gen, device="cuda")},
+        lambda: _plain_blocks(256), TRAIN_STEPS, time_kernels=True)
+
+
+def phase_train_whisper(seed: int):
+    """15b: whisper-tiny at full size, one training step on 8 clips of 1500
+    frames with 448 decoder positions: the only real shape with non-causal
+    attention, S != T and a ragged T in the backward kernel."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("whisper-tiny")
+
+    def batch(gen):
+        frames = torch.randn((WHISPER_CLIPS, cfg.encoder.n_frames, cfg.encoder.d_frame),
+                             generator=gen, device="cuda").to(torch.bfloat16)
+        tokens = torch.randint(2, cfg.vocab, (WHISPER_CLIPS, WHISPER_TEXT + 1), generator=gen,
+                               device="cuda")
+        return {"frames": frames, "tokens": tokens}
+
+    return _train_cell("train-whisper", cfg, seed, batch, lambda: _plain_blocks(256), 1)
+
+
+def phase_restart(seed: int):
+    """15c: ``fit_with_restarts`` on the training twin's config (d 512, 8
+    layers, vocab 50,304) with an asynchronous ``CheckpointManager`` under
+    ``build/``: a failure injected at step RESTART_FAIL_AT, checkpoints every
+    RESTART_EVERY steps, RESTART_STEPS steps.  It must resume from step 4,
+    and the final checkpoint must restore bit for bit onto the live
+    parameters."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import AdamW, AdamWConfig
+    from repro_torch.train.loop import fit_with_restarts
+
+    cfg = _load_example("torch_train_lm").small_llama()
+    model = build_model(cfg)
+    opt = AdamW(AdamWConfig(lr=3e-4, warmup_steps=2, zero1=False))
+    work = os.path.join(ROOT, "build", "chip_smoke_restart")
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt = CheckpointManager(work, keep=3, async_write=True)
+    attempts, notes, saves = [], [], []
+    save = ckpt.save
+    ckpt.save = lambda step, state, **kw: (saves.append(step), save(step, state, **kw))[1]
+
+    def batches():
+        rng = np.random.default_rng(seed)
+        while True:
+            yield {"tokens": rng.integers(2, cfg.vocab, (8, 129)).astype(np.int32)}
+
+    def make_args():
+        attempts.append(len(attempts))
+        return dict(model=model, optimizer=opt, batches=batches(), steps=RESTART_STEPS, ckpt=ckpt,
+                    ckpt_every=RESTART_EVERY, seed=seed, device="cuda", log_every=0,
+                    failure=FailureInjector(RESTART_FAIL_AT if len(attempts) == 1 else None))
+
+    res, t = _sync_s(lambda: fit_with_restarts(make_args, log=notes.append))
+    if res.resumed_from != RESTART_EVERY or res.final_step != RESTART_STEPS or len(attempts) != 2:
+        fail(f"restart: resumed from {res.resumed_from} after {len(attempts)} attempts, final step "
+             f"{res.final_step}; expected {RESTART_EVERY}, 2, {RESTART_STEPS}")
+    live = res.params
+    restored, meta = ckpt.restore(None, (live, opt.init(live)))
+    if meta["step"] != RESTART_STEPS:
+        fail(f"restart: the latest checkpoint is step {meta['step']}, not {RESTART_STEPS}")
+    for (path, a), (_, b) in zip(tree_leaves(restored[0]), tree_leaves(live)):
+        if a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"restart: the final checkpoint's {path} does not restore bit for bit onto the live one")
+    n_leaves = 3 * len(list(tree_leaves(live))) + 1  # params, both moments, the step
+    objects = len(list(ckpt.objects.glob("*.npy")))
+    log(f"restart: {cfg.name} ({model.n_params()} parameters) {RESTART_STEPS} steps on the card with a "
+        f"failure at step {RESTART_FAIL_AT}: {notes}; resumed from step {res.resumed_from} in {t:.2f} s "
+        f"all told; losses {', '.join(f'{x:.4f}' for x in res.losses)}; saves at steps {saves} of "
+        f"{n_leaves} leaves each ({len(saves) * n_leaves} objects without dedup), {objects} objects "
+        f"stored for the checkpoints kept ({ckpt.all_steps()}); the final one restores bit for bit")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"resumed_from": res.resumed_from, "objects": objects, "leaves": n_leaves, "saves": saves}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3011,7 +3486,11 @@ def main() -> int:
     jamba = phase_serve_jamba(args.seed)
     whisper = phase_serve_whisper(args.seed)
     internvl2 = phase_serve_internvl2(args.seed)
+    train = phase_train(args.seed)
+    train_whisper = phase_train_whisper(args.seed)
+    phase_restart(args.seed)
     serving = (serve, mamba, scout, jamba, whisper, internvl2)
+    training = (train, train_whisper)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",
@@ -3036,9 +3515,10 @@ def main() -> int:
         "instances": [{"instance": route, "launches": count}
                       for route, count in main["instances"].items()],
     }]
-    # launches: the sum over the serving paths, each counted from 0 around its own run
-    # flash attention and the SSD scan have two instances: the main path's bf16
-    # one on the tensor cores (its source is the entry's), and the fp32 one
+    # launches: the sum over the serving and training paths, each counted from 0
+    # around its own run; flash attention and the SSD scan have two instances:
+    # the main path's bf16 one on the tensor cores (its source is the entry's),
+    # and the fp32 one
     for name, replaces in (("rmsnorm", "src/repro/kernels/rmsnorm.py:20"),
                            ("flash_attention", "src/repro/kernels/flash_attention.py:112"),
                            ("ssd_scan", "src/repro/kernels/ssd_scan.py:89")):
@@ -3049,7 +3529,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}{'_sm90' if two else ''}.cu",
             "replaces": replaces,
-            "launches": sum(run["launches"][name] for run in serving),
+            "launches": sum(run["launches"][name] for run in serving + training),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
@@ -3060,8 +3540,27 @@ def main() -> int:
         if two:
             kernels[-1]["instances"] = [
                 {"instance": inst, "dtype": dt, "source": f"src/repro_torch/csrc/{name}{suffix}.cu",
-                 "launches": sum(run["instances"][name][inst] for run in serving)}
+                 "launches": sum(run["instances"][name][inst] for run in serving + training)}
                 for inst, dt, suffix in (("tc", "bf16", "_sm90"), ("fp32", "fp32", ""))]
+    # the backward kernels: launches on phase 15's training steps, times on
+    # 15a's layer-0 tensors (the prefill shape of the forward's row)
+    for name, source, replaces in (
+            ("flash_attention_bwd", "flash_attention_bwd", "src/repro/kernels/ref.py:190"),
+            ("rmsnorm_bwd", "rmsnorm_bwd", "src/repro/kernels/ref.py:422")):
+        t = train["timing"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            "launches": sum(run["launches"][name] for run in training),
+            "max_abs_err": max(run["worst"][name] for run in training),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: never launched on its main path")

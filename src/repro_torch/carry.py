@@ -11,6 +11,8 @@ runs on the same data in both.
 ``params_from_reference(tree, device=...)`` takes the reference's
 ``Model.init`` tree with numpy arrays at the leaves and returns the port's
 tree of tensors: the same keys, shapes and dtypes, leaf for leaf.
+``opt_state_from_reference`` does the same for the reference's AdamW state
+(``{"step", "m", "v"[, "ef"]}``) or a gradient tree.
 """
 
 from __future__ import annotations
@@ -48,3 +50,10 @@ def params_from_reference(tree: Mapping[str, Any], device="cuda") -> Dict[str, A
     of numpy arrays), each leaf a tensor on ``device``."""
     return {k: params_from_reference(v, device) if isinstance(v, Mapping) else _tensor(v).to(device)
             for k, v in tree.items()}
+
+
+def opt_state_from_reference(state: Mapping[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's AdamW state for the reference's ``state`` (nested dicts of
+    numpy arrays; ``step`` a 0-d int32), or the port's gradient tree for the
+    reference's gradients, each leaf a tensor on ``device``."""
+    return params_from_reference(state, device)

@@ -58,6 +58,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, S, H) natural-log sum of exponentials, or null (serving)
   int B, S, T, H, KV;
   int causal, has_window, window, has_chunk, chunk, q_offset;
   float scale;
@@ -221,6 +222,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int row = q_row0 + ty + 16 * i;
     if (row >= p.S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)  // what the backward recomputes P from
+      p.lse[(static_cast<size_t>(b) * p.S + row) * p.H + h] = m[i] + logf(fmaxf(l[i], 1e-30f));
     T* orow = o + ((static_cast<size_t>(b) * p.S + row) * p.H + h) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) store<T>(orow + tx + 16 * j, acc[i][j] * inv);
@@ -254,15 +257,18 @@ cudaError_t dispatch_d(int D, const Params& p, cudaStream_t stream) {
 
 // Launches on `stream` (PyTorch's current stream) and returns the launch's
 // cudaError_t; the caller raises on anything but 0.  dtype must be 0
-// (fp32).  `window` / `chunk` apply when `has_window` / `has_chunk`.  The
+// (fp32).  `window` / `chunk` apply when `has_window` / `has_chunk`.  `lse`
+// (B, S, H) fp32 receives each row's m + log(max(l, 1e-30)) for the backward
+// (flash_attention_bwd.cu) when it is not null; serving passes null.  The
 // wrapper has checked shapes, types, contiguity and 16-byte alignment.
 extern "C" int veer_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int dtype, int B, int S, int T, int H, int KV, int D,
-                                        int causal, int has_window, int window, int has_chunk,
+                                        float* lse, int dtype, int B, int S, int T, int H, int KV,
+                                        int D, int causal, int has_window, int window, int has_chunk,
                                         int chunk, int q_offset, float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, B, S, T, H, KV, causal, has_window, window, has_chunk, chunk, q_offset, scale};
+  Params p{q, k, v, o, lse, B, S, T, H, KV, causal, has_window, window, has_chunk, chunk, q_offset,
+           scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);  // bf16: flash_attention_sm90.cu
   return static_cast<int>(dispatch_d<float>(D, p, s));

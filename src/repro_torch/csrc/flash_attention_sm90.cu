@@ -66,6 +66,7 @@ constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // a producer warpgroup and two consumer warpgroups
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2^x in one instruction (flushing results below 2^-126 to zero).
 __device__ __forceinline__ float ex2(float x) {
@@ -84,6 +85,7 @@ struct Params {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // (B, S, H) natural-log sum of exponentials, or null (serving)
   int B, S, T, H, KV;
   int causal, has_window, window, has_chunk, chunk, q_offset;
   float scale;
@@ -328,6 +330,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int row = q_row0 + 64 * c + wg::acc_row(t, i);
       if (row >= p.S) continue;
       const float lc = fmaxf(l[i], 1e-30f);
+      // the backward's lse in natural log: m is the base-2 max of s * scale * log2 e
+      if (p.lse != nullptr && t % 4 == 0)
+        p.lse[(static_cast<size_t>(b) * p.S + row) * p.H + h] = m[i] * LN2 + logf(lc);
       __nv_bfloat16* orow = p.o + ((static_cast<size_t>(b) * p.S + row) * p.H + h) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -403,17 +408,22 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // cudaError_t; the caller raises on anything but 0.  q (B, S, H, D), k and v
 // (B, T, KV, D), o (B, S, H, D): contiguous bf16, 16-byte aligned (the
 // wrapper checks).  `window` / `chunk` apply when `has_window` / `has_chunk`.
+// `lse` (B, S, H) fp32 receives each row's natural-log m + log(max(l, 1e-30))
+// for the backward (flash_attention_bwd.cu) when it is not null; serving
+// passes null.
 extern "C" int veer_flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                                           int B, int S, int T, int H, int KV, int D, int causal,
-                                           int has_window, int window, int has_chunk, int chunk,
-                                           int q_offset, float scale, void* stream) {
+                                           float* lse, int B, int S, int T, int H, int KV, int D,
+                                           int causal, int has_window, int window, int has_chunk,
+                                           int chunk, int q_offset, float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (T == 0)  // no keys: acc = 0, l = 0, o = 0 / 1e-30
-    return static_cast<int>(cudaMemsetAsync(o, 0, static_cast<size_t>(B) * S * H * D * 2,
-                                            static_cast<cudaStream_t>(stream)));
+  if (T == 0) {  // no keys: acc = 0, l = 0, o = 0 / 1e-30, lse = NEG_INF + log(1e-30)
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);  // the wrapper fills it
+    return static_cast<int>(cudaMemsetAsync(o, 0, static_cast<size_t>(B) * S * H * D * 2, s));
+  }
   const Params p{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                 static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+                 static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
                  B, S, T, H, KV, causal, has_window, window, has_chunk, chunk, q_offset, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -7,7 +7,8 @@ interface (the tensor-core ones include the shared ``csrc/wgmma.cuh``).
 of the source, the shared headers and the flags, so an unchanged source is
 compiled once; ``load``
 opens the library with ``ctypes``.  Several sources given to one ``build`` call
-are compiled by concurrent ``nvcc`` processes.
+are compiled by concurrent ``nvcc`` processes.  ``on_cpu`` is the wrappers'
+device dispatch.
 """
 
 from __future__ import annotations
@@ -117,6 +118,19 @@ def load(src: CudaSource) -> ctypes.CDLL:
     lib.veer_cuda_error_string.argtypes = [ctypes.c_int]
     lib.veer_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_cpu(what: str, *tensors) -> bool:
+    """True for tensors all on the CPU (a wrapper's plain version), False
+    for tensors on one CUDA device (its kernel); ``ValueError`` for anything
+    else: no call carries on with tensors the kernel cannot take."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what} kernel needs its tensors on one CUDA device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    return False
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -4,11 +4,18 @@ These are the oracles the tests hold the hand-written kernels to, and the
 computation a kernel wrapper runs for tensors on the CPU:
 
   * ``attention_reference`` — naive O(S*T) attention with an fp32 softmax;
-  * ``flash_attention_reference`` — the forward of the blocked online-softmax
-    attention (``_flash_fwd_impl`` with ``_block_bias``), blocked as the
-    flash kernel is: kernel 3's plain version;
+  * ``flash_attention_reference`` — the blocked online-softmax attention
+    (``_flash_fwd_impl`` with ``_block_bias``), blocked as the flash kernel
+    is: kernel 3's plain version; under grad it is the reference's custom
+    VJP (``FlashAttentionVJP``), as the reference's ``flash_attention_jnp``;
+  * ``flash_attention_bwd_reference`` — the backward of the reference's flash
+    custom VJP (``_flash_bwd_impl``): dQ, dK, dV from (q, k, v, o, lse, dO),
+    block probabilities recomputed from the saved log-sum-exp; the plain
+    version of ``csrc/flash_attention_bwd.cu``;
   * ``decode_attention_reference`` — one new token against a KV cache;
-  * ``rmsnorm_reference`` — kernel 2's plain version;
+  * ``rmsnorm_reference`` — kernel 2's plain version, and
+    ``rmsnorm_bwd_reference``, its autodiff written out, the plain version
+    of ``csrc/rmsnorm_bwd.cu``;
   * ``ssd_reference`` — the chunked Mamba-2 SSD scan, kernel 4's plain
     version (with ``_segsum``), and ``ssd_decode_step``, the one-token
     recurrence the decode path runs;
@@ -19,7 +26,10 @@ computation a kernel wrapper runs for tensors on the CPU:
     versions above at their tolerances.  Tests and
     ``chip_smoke.py`` use them; the main path never does.
 
-The flash custom VJP of the reference comes with the training slice.
+The math runs in fp32 for fp32 and bf16 inputs, as the reference's does;
+float64 inputs stay float64 (``_acc``), so that ``torch.autograd.gradcheck``
+can hold the autograd Functions of ``kernels/flash_attention.py`` and
+``kernels/rmsnorm.py`` to finite differences on the host.
 """
 
 from __future__ import annotations
@@ -30,6 +40,12 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type the plain versions compute in: float64 stays, any
+    other floating type goes to fp32 (the reference's ``.astype(f32)``)."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _inv_sqrt(D: int) -> float:
@@ -97,9 +113,35 @@ def flash_attention_reference(
     kv_block: int = 512,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Blocked online-softmax attention, forward only: loops over q blocks
-    and, inside, over kv blocks, carrying the fp32 state (acc, m, l)."""
+    """Blocked online-softmax attention: loops over q blocks and, inside,
+    over kv blocks, carrying the fp32 state (acc, m, l).  Differentiable as
+    the reference's ``flash_attention_jnp`` is, through its custom VJP
+    (``FlashAttentionVJP``): the forward saves (q, k, v, out, lse) and the
+    backward is ``flash_attention_bwd_reference`` with the same blocks."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionVJP.apply(q, k, v, causal, window, chunk, q_block, kv_block, q_offset)
     return _flash_fwd_impl(q, k, v, causal, window, chunk, q_block, kv_block, q_offset)[0]
+
+
+class FlashAttentionVJP(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP on plain PyTorch: the blocking,
+    the masks and ``q_offset`` are not differentiable (its
+    ``nondiff_argnums``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_block, kv_block, q_offset):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, chunk, q_block, kv_block, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, chunk=chunk, q_block=q_block, kv_block=kv_block,
+                        q_offset=q_offset)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_reference(q, k, v, out, lse, g.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _flash_fwd_impl(
@@ -121,22 +163,23 @@ def _flash_fwd_impl(
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
 
-    qb = q.reshape(B, nq, q_block, KV, G, D).float()
-    kb = k.reshape(B, nk, kv_block, KV, D).float()
-    vb = v.reshape(B, nk, kv_block, KV, D).float()
+    qb = _acc(q.reshape(B, nq, q_block, KV, G, D))
+    kb = _acc(k.reshape(B, nk, kv_block, KV, D))
+    vb = _acc(v.reshape(B, nk, kv_block, KV, D))
+    f = qb.dtype
     scale = _inv_sqrt(D)
 
     outs, lses = [], []
     for qi in range(nq):
         q_tile = qb[:, qi]                                  # (B, q_block, KV, G, D)
         qpos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
-        acc = torch.zeros((B, KV, G, q_block, D), dtype=torch.float32, device=dev)
-        m = torch.full((B, KV, G, q_block), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, KV, G, q_block), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, q_block, D), dtype=f, device=dev)
+        m = torch.full((B, KV, G, q_block), NEG_INF, dtype=f, device=dev)
+        l = torch.zeros((B, KV, G, q_block), dtype=f, device=dev)
         for ki in range(nk):
             kpos = ki * kv_block + torch.arange(kv_block, device=dev)
             s = torch.einsum("bqkgd,btkd->bkgqt", q_tile, kb[:, ki]) * scale
-            s = s + _block_bias(qpos, kpos, T, causal, window, chunk)[None, None, None]
+            s = s + _block_bias(qpos, kpos, T, causal, window, chunk).to(f)[None, None, None]
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -152,6 +195,82 @@ def _flash_fwd_impl(
     out = torch.cat(outs, dim=1).reshape(B, nq * q_block, H, D)
     lse = torch.cat(lses, dim=1).reshape(B, nq * q_block, H)
     return out[:, :S].to(q.dtype), lse[:, :S]
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,    # (B, S, H, D)
+    k: torch.Tensor,    # (B, T, KV, D)
+    v: torch.Tensor,    # (B, T, KV, D)
+    out: torch.Tensor,  # (B, S, H, D) the forward's output
+    lse: torch.Tensor,  # (B, S, H) fp32, the forward's log-sum-exp
+    g: torch.Tensor,    # (B, S, H, D) the gradient of the output
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: Optional[int] = None,
+    q_block: int = 512,
+    kv_block: int = 512,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward (the reference's ``_flash_bwd_impl``): recompute block
+    probabilities from the saved lse.
+
+    dV = Σ_q pᵀ g;  dP = g Vᵀ;  dS = p ∘ (dP − δ) with δ = Σ_d g·out;
+    dQ = dS K;  dK = dSᵀ Q.  Loops over kv blocks and, inside, over q blocks,
+    carrying the dK/dV accumulators, as the reference's nested scans do.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    q_block = min(q_block, S)
+    kv_block = min(kv_block, T)
+    nq = (S + q_block - 1) // q_block
+    nk = (T + kv_block - 1) // kv_block
+    pad_q = nq * q_block - S
+    pad_k = nk * kv_block - T
+
+    def padq(x):
+        return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad_q)) if pad_q else x
+
+    def padk(x):
+        return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad_k)) if pad_k else x
+
+    qb = _acc(padq(q).reshape(B, nq, q_block, KV, G, D))
+    ob = _acc(padq(out).reshape(B, nq, q_block, KV, G, D))
+    gb = _acc(padq(g).reshape(B, nq, q_block, KV, G, D))
+    lseb = padq(lse).reshape(B, nq, q_block, KV, G).to(qb.dtype)
+    kb = _acc(padk(k).reshape(B, nk, kv_block, KV, D))
+    vb = _acc(padk(v).reshape(B, nk, kv_block, KV, D))
+    f = qb.dtype
+    scale = _inv_sqrt(D)
+    delta = torch.sum(ob * gb, dim=-1)  # (B, nq, q_block, KV, G)
+
+    dq_acc = torch.zeros((B, nq, q_block, KV, G, D), dtype=f, device=dev)
+    dk_all, dv_all = [], []
+    for ki in range(nk):
+        k_tile, v_tile = kb[:, ki], vb[:, ki]
+        kpos = ki * kv_block + torch.arange(kv_block, device=dev)
+        dk_acc = torch.zeros((B, kv_block, KV, D), dtype=f, device=dev)
+        dv_acc = torch.zeros((B, kv_block, KV, D), dtype=f, device=dev)
+        for qi in range(nq):
+            q_tile, g_tile = qb[:, qi], gb[:, qi]
+            l_tile, d_tile = lseb[:, qi], delta[:, qi]
+            qpos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
+            s = torch.einsum("bqkgd,btkd->bkgqt", q_tile, k_tile) * scale
+            bias = _block_bias(qpos, kpos, T, causal, window, chunk).to(f)
+            p = torch.exp(s + bias[None, None, None] - l_tile.permute(0, 2, 3, 1)[..., None])
+            dv_acc = dv_acc + torch.einsum("bkgqt,bqkgd->btkd", p, g_tile)
+            dp = torch.einsum("bqkgd,btkd->bkgqt", g_tile, v_tile)
+            ds = p * (dp - d_tile.permute(0, 2, 3, 1)[..., None]) * scale
+            dq_acc[:, qi] += torch.einsum("bkgqt,btkd->bqkgd", ds, k_tile)
+            dk_acc = dk_acc + torch.einsum("bkgqt,bqkgd->btkd", ds, q_tile)
+        dk_all.append(dk_acc)
+        dv_all.append(dv_acc)
+    dq = dq_acc.reshape(B, nq * q_block, H, D)[:, :S].to(q.dtype)
+    dk = torch.cat(dk_all, dim=1)[:, :T].to(k.dtype)
+    dv = torch.cat(dv_all, dim=1)[:, :T].to(v.dtype)
+    return dq, dk, dv
 
 
 TC_KV_BLOCK = 128  # keys per tile of flash_attention_sm90.cu
@@ -420,6 +539,24 @@ def ssd_decode_step(
 
 
 def rmsnorm_reference(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = _acc(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * w.to(xf.dtype)).to(x.dtype)
+
+
+def rmsnorm_bwd_reference(
+    x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``rmsnorm_reference`` at ``x`` (..., D) and ``w``
+    (D,) for the output gradient ``g``, its autodiff written out in fp32:
+    with ``r = rsqrt(mean(x²) + eps)``,
+    ``dx = r·(w∘g) − x·r³·mean(x∘w∘g)`` in x's dtype and
+    ``dw = Σ_rows g∘x·r`` in fp32."""
+    xf, gf = _acc(x), _acc(g)
+    wf = w.to(xf.dtype)
+    D = x.shape[-1]
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    wg = wf * gf
+    dx = r * wg - xf * (r * r * r) * (torch.sum(xf * wg, dim=-1, keepdim=True) / D)
+    dw = torch.sum((gf * xf * r).reshape(-1, D), dim=0)
+    return dx.to(x.dtype), dw

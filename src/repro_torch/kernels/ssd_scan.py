@@ -24,6 +24,11 @@ their dtype (or raises), an ``initial_state`` included, which both read; on
 CPU tensors it runs ``ref.ssd_reference``, the plain PyTorch version.
 ``ssd_scan.launches`` counts calls that launched, ``launches_tc`` and
 ``launches_fp32`` those of each instance.
+
+The kernel has no backward yet: on CUDA tensors with grad mode on and an
+input that requires grad, the wrapper raises ``NotImplementedError``
+(``refuse_grad``) instead of returning an output with no graph.  On CPU
+tensors the plain version is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -65,12 +70,22 @@ def ssd_scan(
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"ssd_scan kernel needs every input on one CUDA device, got "
                          f"{sorted({str(t.device) for t in tensors})}")
+    refuse_grad(*tensors)
     return _launch(x, dt, A, Bm, Cm, chunk, initial_state)
 
 
 ssd_scan.launches = 0
 ssd_scan.launches_tc = 0
 ssd_scan.launches_fp32 = 0
+
+
+def refuse_grad(*tensors: torch.Tensor) -> None:
+    """Raise if a gradient is asked of the kernel, which has none yet: a
+    wrong (missing) gradient must not pass for a right one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the ssd_scan kernel has no backward yet (ROADMAP queue 1, item 4: the SSD backward); "
+            "differentiate the ssm and hybrid families on the plain path, attn_impl='reference'")
 
 
 def _launch(x, dt, A, Bm, Cm, chunk, initial_state):

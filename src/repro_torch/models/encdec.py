@@ -16,6 +16,12 @@ the RMSNorm kernel.  The reference runs plain attention there (its
 ``attention_reference``).  ``attn_impl="reference"`` is the plain path
 throughout.  The decode step's cross-attention is the plain
 ``decode_attention_reference``, as in the reference.
+
+``encdec_loss`` is differentiable; with ``remat`` each decoder layer runs
+under activation checkpointing, as the reference's ``jax.checkpoint`` over
+its decoder scan (the encoder is not checkpointed there either).  The
+serving entry points (``encode``, ``encdec_forward``,
+``encdec_decode_step``) run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
-from repro_torch.models.layers import (PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, token_loss,
-                                       tree_map)
+from repro_torch.models.layers import (PD, checkpointed, dense, mlp_block, mlp_defs, rms_norm, stack_defs,
+                                       token_loss, tree_map)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -96,13 +102,33 @@ def _dec_layer(lp, x, enc_out, positions, cfg: ArchConfig, attn_impl: str) -> to
     return mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
 
 
-@torch.no_grad()
-def encode(params, frames: torch.Tensor, cfg: ArchConfig, *, attn_impl: str = "auto") -> torch.Tensor:
-    """frames: (B, n_frames, d) stub frontend output → encoder states, bf16."""
+def _encode(params, frames: torch.Tensor, cfg: ArchConfig, attn_impl: str) -> torch.Tensor:
     x = frames.to(COMPUTE_DTYPE) + params["enc_pos"].to(COMPUTE_DTYPE)[None]
     for i in range(cfg.encoder.n_layers):
         x = _enc_layer(_layer(params["enc"], i), x, cfg, attn_impl)
     return rms_norm(x, params["enc_ln"], cfg.rms_eps, impl=attn_impl)
+
+
+@torch.no_grad()
+def encode(params, frames: torch.Tensor, cfg: ArchConfig, *, attn_impl: str = "auto") -> torch.Tensor:
+    """frames: (B, n_frames, d) stub frontend output → encoder states, bf16."""
+    return _encode(params, frames, cfg, attn_impl)
+
+
+def _logits(params, frames, inputs, cfg: ArchConfig, attn_impl: str, remat: bool) -> torch.Tensor:
+    """The forward of ``encdec_forward``, differentiable, each decoder layer
+    checkpointed when ``remat``."""
+    enc_out = _encode(params, frames, cfg, attn_impl)
+    x = params["embed"][inputs].to(COMPUTE_DTYPE)
+    positions = torch.arange(inputs.shape[1], device=x.device)
+
+    def layer_fn(x, i):
+        return _dec_layer(_layer(params["dec"], i), x, enc_out, positions, cfg, attn_impl)
+
+    for i in range(cfg.n_layers):
+        x = checkpointed(remat, layer_fn, x, i)
+    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
+    return dense(x, params["lm_head"])
 
 
 @torch.no_grad()
@@ -114,22 +140,15 @@ def encdec_forward(
     *,
     attn_impl: str = "auto",
 ) -> torch.Tensor:
-    """Logits (B, S, V) in bf16."""
-    enc_out = encode(params, frames, cfg, attn_impl=attn_impl)
-    x = params["embed"][inputs].to(COMPUTE_DTYPE)
-    positions = torch.arange(inputs.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x = _dec_layer(_layer(params["dec"], i), x, enc_out, positions, cfg, attn_impl)
-    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
-    return dense(x, params["lm_head"])
+    """Logits (B, S, V) in bf16.  Serving: no graph."""
+    return _logits(params, frames, inputs, cfg, attn_impl, remat=False)
 
 
-@torch.no_grad()
 def encdec_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-                attn_impl: str = "auto") -> torch.Tensor:
-    """batch: frames (B, T, d), tokens (B, S + 1)."""
+                attn_impl: str = "auto", remat: bool = True) -> torch.Tensor:
+    """batch: frames (B, T, d), tokens (B, S + 1).  Differentiable."""
     tokens = batch["tokens"]
-    logits = encdec_forward(params, batch["frames"], tokens[:, :-1], cfg, attn_impl=attn_impl)
+    logits = _logits(params, batch["frames"], tokens[:, :-1], cfg, attn_impl, remat)
     return token_loss(logits, tokens[:, 1:])
 
 

@@ -7,9 +7,11 @@ documentation; sharding comes with a later slice.
 
 One difference from the reference: ``rms_norm`` takes an ``impl`` and goes
 through ``ops.rmsnorm``, so on the card the hand-written RMSNorm kernel runs
-on every norm of the model.  The reference pins ``impl="reference"`` there,
-a dispatch choice for the TPU; its Pallas kernel computes the same function
-(``tests/test_kernels.py`` holds the two to 1e-6).
+on every norm of the model, forward and (through its autograd Function)
+backward.  The reference pins ``impl="reference"`` there, a dispatch choice
+for the TPU; its Pallas kernel computes the same function
+(``tests/test_kernels.py`` holds the two to 1e-6).  ``checkpointed`` is the
+models' remat.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -54,26 +57,32 @@ def tree_leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def init_tree(defs, generator: torch.Generator, device) -> Dict[str, Any]:
-    """Real tensors for a tree of ``PD``s, on ``device``: normal draws times
-    the scale from ``generator`` (which lives on that device) in sorted key
-    order, zeros and ones."""
-    out = {}
-    for path, pd in tree_leaves(defs):
-        if pd.init == "zeros":
-            t = torch.zeros(pd.shape, dtype=pd.dtype, device=device)
-        elif pd.init == "ones":
-            t = torch.ones(pd.shape, dtype=pd.dtype, device=device)
-        else:
-            t = torch.empty(pd.shape, dtype=torch.float32, device=device)
-            t.normal_(0.0, pd.scale, generator=generator)
-            t = t.to(pd.dtype)
+def tree_from_leaves(pairs) -> Dict[str, Any]:
+    """The tree of nested dicts whose ``tree_leaves`` are ``pairs``."""
+    out: Dict[str, Any] = {}
+    for path, leaf in pairs:
         node = out
         keys = path.split("/")
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = t
+        node[keys[-1]] = leaf
     return out
+
+
+def init_tree(defs, generator: torch.Generator, device) -> Dict[str, Any]:
+    """Real tensors for a tree of ``PD``s, on ``device``: normal draws times
+    the scale from ``generator`` (which lives on that device) in sorted key
+    order, zeros and ones."""
+    def make(pd: PD) -> torch.Tensor:
+        if pd.init == "zeros":
+            return torch.zeros(pd.shape, dtype=pd.dtype, device=device)
+        if pd.init == "ones":
+            return torch.ones(pd.shape, dtype=pd.dtype, device=device)
+        t = torch.empty(pd.shape, dtype=torch.float32, device=device)
+        t.normal_(0.0, pd.scale, generator=generator)
+        return t.to(pd.dtype)
+
+    return tree_from_leaves((path, make(pd)) for path, pd in tree_leaves(defs))
 
 
 def zeros_tree(shapes, device) -> Dict[str, Any]:
@@ -94,6 +103,17 @@ def stack_defs(defs, n: int):
 # ---------------------------------------------------------------------------
 # Primitives
 # ---------------------------------------------------------------------------
+
+
+def checkpointed(remat: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat`` is on and
+    a graph is being built (grad mode on, a tensor argument that requires
+    grad): the reference's ``jax.checkpoint``.  The forward keeps only the
+    inputs, and the backward recomputes ``fn`` to get what it saved."""
+    if remat and torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5, *, impl: str = "auto") -> torch.Tensor:

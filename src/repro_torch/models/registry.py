@@ -11,9 +11,13 @@
 
 ``attn_impl`` ("auto" | "cuda" | "reference", ``kernels/ops.py``) selects
 the flash attention, SSD scan and RMSNorm implementation.  It defaults to
-"auto": the hand-written kernels on CUDA tensors.  The reference defaults
-to its plain path; "reference" names the port's plain path.  Training,
-``remat`` and the sharding specs come with later slices.
+"auto": the hand-written kernels on CUDA tensors, whose autograd Functions
+run the hand-written backward kernels of flash attention and RMSNorm (the
+SSD kernel has no backward yet and raises under grad).  The reference
+defaults to its plain path; "reference" names the port's plain path.
+``loss`` is differentiable; ``remat`` (default True, as the reference)
+checkpoints each period of the stack.  ``forward``, ``forward_step`` and
+``decode_step`` build no graph.  The sharding specs come with a later slice.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ def resolve_device(device) -> torch.device:
 class Model:
     cfg: ArchConfig
     attn_impl: str = "auto"
+    remat: bool = True
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
@@ -79,16 +84,20 @@ class Model:
     # -- steps ----------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token loss (fp32 scalar) of ``batch["tokens"]`` (B, S + 1),
-        with ``frames`` (audio) or ``patch_embeds`` (VLM)."""
+        with ``frames`` (audio) or ``patch_embeds`` (VLM); differentiable in
+        ``params``."""
+        kw = dict(attn_impl=self.attn_impl, remat=self.remat)
         if self.cfg.family == "audio":
-            return E.encdec_loss(params, batch, self.cfg, attn_impl=self.attn_impl)
+            return E.encdec_loss(params, batch, self.cfg, **kw)
         if self.cfg.family == "vlm":
-            return V.vlm_loss(params, batch, self.cfg, attn_impl=self.attn_impl)
-        return T.lm_loss(params, batch, self.cfg, attn_impl=self.attn_impl)
+            return V.vlm_loss(params, batch, self.cfg, **kw)
+        return T.lm_loss(params, batch, self.cfg, **kw)
 
+    @torch.no_grad()
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return T.lm_forward(params, tokens, self.cfg, attn_impl=self.attn_impl)
 
+    @torch.no_grad()
     def forward_step(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Inference prefill: batch → logits (serve-side prefill compute).
         The VLM's logits cover the patches and the tokens."""

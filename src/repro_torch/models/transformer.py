@@ -8,6 +8,11 @@ The parameter tree keeps the reference's keys: ``embed``, ``final_ln``,
 period.  The reference's ``lax.scan`` over periods is a Python loop over
 that axis here.  A layer whose index the config's ``moe_layer_mask`` marks
 has an ``ffn_moe`` (``models/moe.py``) in place of its dense ``ffn``.
+
+``lm_loss`` is differentiable; with ``remat`` each period of the stack and
+each tail layer runs under activation checkpointing, as the reference's
+``jax.checkpoint(period_fn)``.  The serving entry points (``lm_forward``,
+``lm_decode_step``, ``lm_prefill``) run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -20,8 +25,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import (PD, dense, mlp_block, mlp_defs, rms_norm, stack_defs, token_loss,
-                                       tree_map, zeros_tree)
+from repro_torch.models.layers import (PD, checkpointed, dense, mlp_block, mlp_defs, rms_norm, stack_defs,
+                                       token_loss, tree_map, zeros_tree)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -110,6 +115,33 @@ def attn_impl_to_ssd(attn_impl: str) -> str:
     return attn_impl  # same dispatch vocabulary
 
 
+def _logits(params, tokens, cfg: ArchConfig, attn_impl: str, prefix_embeds, remat: bool) -> torch.Tensor:
+    """The forward of ``lm_forward``, differentiable, each period (and tail
+    layer) checkpointed when ``remat``."""
+    p, n_periods, rem = _segments(cfg)
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(COMPUTE_DTYPE), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def period_fn(x, period):
+        for j in range(p):
+            lp = tree_map(lambda t: t[period], params["scan"][f"l{j}"])
+            x = _block_fwd(lp, x, cfg, cfg.pattern[j], positions, attn_impl)
+        return x
+
+    def tail_fn(x, i):
+        return _block_fwd(params[f"tail{i}"], x, cfg, cfg.pattern[n_periods * p + i], positions,
+                          attn_impl)
+
+    for period in range(n_periods):
+        x = checkpointed(remat, period_fn, x, period)
+    for i in range(rem):
+        x = checkpointed(remat, tail_fn, x, i)
+    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
+    return dense(x, _head(params, cfg))
+
+
 @torch.no_grad()
 def lm_forward(
     params: Dict[str, Any],
@@ -121,25 +153,18 @@ def lm_forward(
 ) -> torch.Tensor:
     """Logits (B, Sp + S, V) in bf16.  A prefix (the VLM's projected
     patches) goes before the token embeddings in bf16; positions and the
-    causal mask run over the whole sequence."""
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(COMPUTE_DTYPE), x], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)
-    for kind, lp, _ in _layers(params, cfg):
-        x = _block_fwd(lp, x, cfg, kind, positions, attn_impl)
-    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
-    return dense(x, _head(params, cfg))
+    causal mask run over the whole sequence.  Serving: no graph."""
+    return _logits(params, tokens, cfg, attn_impl, prefix_embeds, remat=False)
 
 
-@torch.no_grad()
 def lm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-            attn_impl: str = "auto") -> torch.Tensor:
+            attn_impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """Mean next-token loss of ``batch["tokens"]`` (B, S + 1); a
-    ``prefix_embeds`` in the batch (the VLM's) is run and left out of it."""
+    ``prefix_embeds`` in the batch (the VLM's) is run and left out of it.
+    Differentiable in the parameters (and the prefix)."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
-    logits = lm_forward(params, tokens[:, :-1], cfg, attn_impl=attn_impl, prefix_embeds=prefix)
+    logits = _logits(params, tokens[:, :-1], cfg, attn_impl, prefix, remat)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
     return token_loss(logits, tokens[:, 1:])

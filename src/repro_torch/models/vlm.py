@@ -30,10 +30,10 @@ def project_patches(params: Dict[str, Any], patch_embeds: torch.Tensor) -> torch
     return dense(patch_embeds.to(COMPUTE_DTYPE), params["vision_proj"])
 
 
-@torch.no_grad()
 def vlm_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
-             attn_impl: str = "auto") -> torch.Tensor:
-    """batch: tokens (B, S + 1), patch_embeds (B, n_patches, d_vision)."""
+             attn_impl: str = "auto", remat: bool = True) -> torch.Tensor:
+    """batch: tokens (B, S + 1), patch_embeds (B, n_patches, d_vision).
+    Differentiable (``vision_proj`` included)."""
     lm_batch = {"tokens": batch["tokens"],
                 "prefix_embeds": project_patches(params, batch["patch_embeds"])}
-    return lm_loss(params, lm_batch, cfg, attn_impl=attn_impl)
+    return lm_loss(params, lm_batch, cfg, attn_impl=attn_impl, remat=remat)

@@ -51,6 +51,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import repro_torch.workload.workloads, repro_torch.workload.replay\n"
         "import repro_torch.service.server, repro_torch.service.fleet\n"
         "import repro_torch.service.remote, repro_torch.service.remote.filetier\n"
+        "import repro_torch.train, repro_torch.train.loop, repro_torch.checkpoint\n"
+        "import repro_torch.distributed, repro_torch.distributed.fault\n"
         "repro_torch.configs.get_arch('llama3-8b')\n"
         "repro_torch.api.VeerConfig(guidance='model').build()\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', 'benchmarks')\n"
@@ -75,7 +77,7 @@ def _imported_modules(path):
 
 def test_no_file_of_the_port_imports_jax_or_the_reference():
     twins = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(twins) == 5
+    assert len(twins) == 6
     files = sorted(PORT.rglob("*.py")) + twins + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
@@ -126,7 +128,7 @@ def test_execute_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["quickstart", "chain_session", "verification_service",
-                                  "iterative_analytics", "serve_decode"])
+                                  "iterative_analytics", "serve_decode", "train_lm"])
 def test_example_twins_default_to_cuda(monkeypatch, name):
     """Each twin runs on CUDA unless the CPU is asked for: without CUDA its
     ``main()`` raises before it prints anything."""
