@@ -9,11 +9,12 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles the eight kernel sources of ``src/repro_torch/csrc/``
+  2. build       compiles the nine kernel sources of ``src/repro_torch/csrc/``
                  (relational, rmsnorm, flash_attention and ssd_scan for fp32,
                  flash_attention_sm90 and ssd_scan_sm90 for bf16 on the
-                 tensor cores, and the backward kernels flash_attention_bwd
-                 and rmsnorm_bwd), one nvcc each, all started together.
+                 tensor cores, and the backward kernels: flash_attention_bwd
+                 for fp32, flash_attention_bwd_sm90 for bf16 on the tensor
+                 cores, rmsnorm_bwd), one nvcc each, all started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -207,18 +208,20 @@ Phases (any failure exits non-zero and prints no result):
                  d_ff 14,336, vocab 128,256) cut to its first 4 of 32 layers
                  (1,923,125,248 parameters), fp32 weights from --seed, on 2 x
                  4096 tokens: ``train.loss_and_grads`` through the kernels
-                 (remat on: per step 8 flash forward launches, all of the
-                 tensor-core instance, 4 flash backward, 17 RMSNorm forward
-                 and 9 backward) against the plain path beside a control (the
-                 plain path with attention blocks of 256): the loss within
+                 (remat on: per step 8 flash forward launches and 4 flash
+                 backward, all of the tensor-core instances, 17 RMSNorm
+                 forward and 9 backward) against the plain path beside a
+                 control (the plain path with attention blocks of 256): the
+                 loss within
                  LOSS_TOL + LOSS_TOL x |loss|, each leaf's relative L2
                  gradient error within 2x the control's (floor GRAD_FLOOR),
                  compared leaf by leaf; both backward kernels held to their
                  plain versions on layer 0's own tensors, bf16 as they ran
                  and fp32 (MIRROR_ATOL / BWD_FP32_TOL) and timed beside their
                  plain versions, SDPA's backward and autograd through
-                 ``F.rms_norm``; then TRAIN_STEPS AdamW steps through
-                 ``make_train_step`` on one repeated batch (the loss must
+                 ``F.rms_norm``, their bounds and the flash design's floor
+                 (10 products a pair, twice the least); then TRAIN_STEPS
+                 AdamW steps through ``make_train_step`` on one repeated batch (the loss must
                  fall), step wall time, tokens/s, the high-water mark, a
                  profiled step (device ms by kind, idle share) and a logged
                  step with ``microbatches=2``.  (b) whisper-tiny at full
@@ -236,8 +239,9 @@ Phases (any failure exits non-zero and prints no result):
                  serving paths and phase 15's training steps, the
                  relational kernel's over phases 4, 7, 7b's service and
                  7c's manager, the backward kernels' over 15a-b; relational,
-                 flash attention and the SSD scan also by instance), the
-                 card's name and power limit, then the result line.
+                 flash attention, its backward and the SSD scan also by
+                 instance), the card's name and power limit, then the result
+                 line.
 
 Options: ``--seed N`` (default 0) seeds the serving and training phases'
 weights and tokens.
@@ -309,10 +313,10 @@ def _kernel_modules():
 def _reset_counts():
     R, RMS, FA, SS = _kernel_modules()
     R.relational.launches = RMS.rmsnorm.launches = 0
-    FA.flash_attention_bwd.launches = RMS.rmsnorm_bwd.launches = 0
+    RMS.rmsnorm_bwd.launches = 0
     for route in R.relational.launches_by_instance:
         R.relational.launches_by_instance[route] = 0
-    for w in (FA.flash_attention, SS.ssd_scan):
+    for w in (FA.flash_attention, FA.flash_attention_bwd, SS.ssd_scan):
         w.launches = w.launches_tc = w.launches_fp32 = 0
 
 
@@ -329,7 +333,8 @@ def _instance_counts():
     tensor cores) and ``fp32`` (CUDA cores)."""
     _, _, FA, SS = _kernel_modules()
     return {name: {"tc": w.launches_tc, "fp32": w.launches_fp32}
-            for name, w in (("flash_attention", FA.flash_attention), ("ssd_scan", SS.ssd_scan))}
+            for name, w in (("flash_attention", FA.flash_attention),
+                            ("flash_attention_bwd", FA.flash_attention_bwd), ("ssd_scan", SS.ssd_scan))}
 
 
 def _relational_instances():
@@ -344,7 +349,7 @@ def phase_build():
     R, RMS, FA, SS = _kernel_modules()
     t0 = time.perf_counter()
     infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, FA.SOURCE_TC, SS.SOURCE, SS.SOURCE_TC,
-                         FA.SOURCE_BWD, RMS.SOURCE_BWD)
+                         FA.SOURCE_BWD, FA.SOURCE_BWD_TC, RMS.SOURCE_BWD)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
@@ -353,7 +358,7 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
     # load each and check the relational plan layout against the source
     R._library(), RMS._library(), FA._library(), FA._library_tc(), SS._library(), SS._library_tc()
-    FA._library_bwd(), RMS._library_bwd()
+    FA._library_bwd(), FA._library_bwd_tc(), RMS._library_bwd()
     log(f"build: all kernels in {wall:.2f} s of wall time")
     return {"seconds": wall}
 
@@ -3078,12 +3083,13 @@ class _last_bwd_inputs:
 
         # a wrapper launches through the original, which counts on the
         # module's name for itself, the stand-in while recording
-        fa.launches = rms.launches = 0
+        fa.launches = fa.launches_tc = fa.launches_fp32 = rms.launches = 0
         FA.flash_attention_bwd, RMS.rmsnorm_bwd = self.stand_ins = fa, rms
         return self
 
     def __exit__(self, *exc):
-        self.fa.launches += self.stand_ins[0].launches
+        for name in ("launches", "launches_tc", "launches_fp32"):
+            setattr(self.fa, name, getattr(self.fa, name) + getattr(self.stand_ins[0], name))
         self.rms.launches += self.stand_ins[1].launches
         self.FA.flash_attention_bwd, self.RMS.rmsnorm_bwd = self.fa, self.rms
 
@@ -3163,6 +3169,9 @@ def _time_bwd_kernels(tag, rec):
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, o, lse, g, dq, dk, dv))
     pairs = B * H * _visible_pairs(S, T, masks["causal"], masks["window"], masks["chunk"], masks["q_offset"])
     bound, by = _bound_ms(nbytes, 10 * D * pairs, BF16_TENSOR_FLOP_PER_S)
+    # the tensor-core design's own floor: S and dP twice, P and dS as hi + lo
+    # (10 products of D multiply-adds a pair where the least is 5)
+    floor, _ = _bound_ms(nbytes, 20 * D * pairs, BF16_TENSOR_FLOP_PER_S)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=masks["causal"], enable_gqa=True)
     gt = g.transpose(1, 2)
@@ -3172,8 +3181,9 @@ def _time_bwd_kernels(tag, rec):
           "bound_ms": bound, "bound_by": by}
     log(f"{tag}: flash attention backward at B={B} S={S} T={T} H={H} KV={k.shape[2]} D={D} {q.dtype} "
         f"{masks}: kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms, SDPA backward "
-        f"{fa['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {pairs} visible pairs, {nbytes} bytes); "
-        f"kernel at {10 * D * pairs / fa['ms'] / 1e9:.2f} TFLOP/s of the least work")
+        f"{fa['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {pairs} visible pairs, {nbytes} bytes), "
+        f"the design's floor {floor:.4f} ms; kernel at {10 * D * pairs / fa['ms'] / 1e9:.2f} TFLOP/s of "
+        f"the least work, {100 * bound / fa['ms']:.1f}% of the bound")
     del dq, dk, dv, qt, kt, vt, lib_out
     x, w, gx, eps = rec.norm
     dx, dw = RMS.rmsnorm_bwd(x, w, gx, eps)
@@ -3187,7 +3197,8 @@ def _time_bwd_kernels(tag, rec):
            "bound_ms": bound, "bound_by": by}
     log(f"{tag}: rmsnorm backward at {tuple(x.shape)} {x.dtype}: kernel {rms['ms']:.4f} ms, plain "
         f"{rms['plain_ms']:.4f} ms, autograd through F.rms_norm {rms['library_ms']:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}); kernel at {nbytes / rms['ms'] / 1e9:.2f} TB/s")
+        f"{bound:.4f} ms ({by}); kernel at {nbytes / rms['ms'] / 1e9:.2f} TB/s, "
+        f"{100 * bound / rms['ms']:.1f}% of the bound")
     return {"flash_attention_bwd": fa, "rmsnorm_bwd": rms}
 
 
@@ -3246,9 +3257,10 @@ def _check_step_launches(tag, cfg, counts, inst, steps=1):
     want = {k: steps * n for k, n in _expected_train_launches(cfg).items()}
     if counts != want:
         fail(f"{tag}: {steps} training step(s) launched {counts}, expected {want}")
-    if inst["flash_attention"] != {"tc": want["flash_attention"], "fp32": 0}:
-        fail(f"{tag}: the training forward's flash launches by instance {inst['flash_attention']}: "
-             f"not all on the tensor-core instance")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if inst[name] != {"tc": want[name], "fp32": 0}:
+            fail(f"{tag}: the training step's {name} launches by instance {inst[name]}: not all on the "
+                 f"tensor-core instance")
 
 
 def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
@@ -3543,13 +3555,15 @@ def main() -> int:
                  "launches": sum(run["instances"][name][inst] for run in serving + training)}
                 for inst, dt, suffix in (("tc", "bf16", "_sm90"), ("fp32", "fp32", ""))]
     # the backward kernels: launches on phase 15's training steps, times on
-    # 15a's layer-0 tensors (the prefill shape of the forward's row)
-    for name, source, replaces in (
-            ("flash_attention_bwd", "flash_attention_bwd", "src/repro/kernels/ref.py:190"),
-            ("rmsnorm_bwd", "rmsnorm_bwd", "src/repro/kernels/ref.py:422")):
+    # 15a's layer-0 tensors (the prefill shape of the forward's row); the flash
+    # backward's entry is its bf16 tensor-core instance, the one training runs
+    for name, entry, source, replaces in (
+            ("flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_sm90",
+             "src/repro/kernels/ref.py:190"),
+            ("rmsnorm_bwd", "rmsnorm_bwd", "rmsnorm_bwd", "src/repro/kernels/ref.py:422")):
         t = train["timing"][name]
         kernels.append({
-            "name": name,
+            "name": entry,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",
             "replaces": replaces,
@@ -3561,6 +3575,12 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if name == "flash_attention_bwd":
+            kernels[-1]["instances"] = [
+                {"instance": inst, "dtype": dt, "source": f"src/repro_torch/csrc/{src}.cu",
+                 "launches": sum(run["instances"][name][inst] for run in training)}
+                for inst, dt, src in (("tc", "bf16", "flash_attention_bwd_sm90"),
+                                      ("fp32", "fp32", "flash_attention_bwd"))]
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: never launched on its main path")

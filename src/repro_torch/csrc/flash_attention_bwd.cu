@@ -1,8 +1,9 @@
-// Flash attention, backward: dQ, dK, dV of GQA attention with causal /
+// Flash attention, backward, fp32: dQ, dK, dV of GQA attention with causal /
 // sliding-window / chunked-local masks shifted by q_offset, from the forward's
-// inputs, its output o, its log-sum-exp lse and the output's gradient dO.
-// fp32 or bf16 inputs; the arithmetic is fp32 on the CUDA cores; the
-// gradients are written in the inputs' dtype.
+// inputs, its output o, its log-sum-exp lse and the output's gradient dO,
+// all fp32, with fp32 FMAs on the CUDA cores.  The bf16 instance runs on the
+// tensor cores (flash_attention_bwd_sm90.cu); TF32 would not hold this
+// instance's tolerance of 1e-5.
 //
 // Replaces the backward of the reference's flash custom VJP,
 // src/repro/kernels/ref.py:190 _flash_bwd_impl (under the jax.custom_vjp at
@@ -36,11 +37,9 @@
 //
 // Bound.  Per visible (q, k) pair the backward does five products of D
 // multiply-adds at least (S, dP, dV, dK, dQ; 10 D FLOPs); this kernel does
-// seven (S and dP twice): at the prefill shape it is bound by operations.  On
-// the CUDA cores it can reach at most the fp32 rate, far above the bf16
-// tensor-core bound that PERF.md states; a wgmma redesign is later work.
+// seven (S and dP twice): at the prefill shape it is bound by operations, at
+// most the fp32 rate of the CUDA cores.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,41 +56,22 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 }
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
   const float* lse;  // (B, S, H)
-  const void* g;     // dO, (B, S, H, D)
+  const float* g;    // dO, (B, S, H, D)
   float* delta;      // (B, S, H) scratch
-  void* dq;
-  void* dk;
-  void* dv;
+  float* dq;
+  float* dk;
+  float* dv;
   int B, S, T, H, KV;
   int causal, has_window, window, has_chunk, chunk, q_offset;
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
 __device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -103,8 +83,8 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc)
 // Load ROWS rows of D elements, starting at sequence index `start`, of head
 // `head` from x (B, L, NH, D) into smem[r * ld + d] as fp32; rows at or beyond
 // L read as zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* smem, int ld, const T* x, int b, int start, int L,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* smem, int ld, const float* x, int b, int start, int L,
                                           int NH, int head) {
   constexpr int CHUNKS = D / 4;  // four elements per chunk
   for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
@@ -112,7 +92,7 @@ __device__ __forceinline__ void load_tile(float* smem, int ld, const T* x, int b
     const int d = (c % CHUNKS) * 4;
     const int pos = start + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < L) val = load4<T>(x + ((static_cast<size_t>(b) * L + pos) * NH + head) * D + d);
+    if (pos < L) val = load4(x + ((static_cast<size_t>(b) * L + pos) * NH + head) * D + d);
     *reinterpret_cast<float4*>(smem + r * ld + d) = val;
   }
 }
@@ -204,20 +184,20 @@ __device__ __forceinline__ void probs_and_dS(const Params& p, const float* sq, c
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
+template <int D>
+__global__ void __launch_bounds__(THREADS) delta_kernel(const float* __restrict__ o, const float* __restrict__ g,
                                                         float* __restrict__ delta, long long rows) {
   const long long row = static_cast<long long>(blockIdx.x) * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;  // uniform over the warp
   float acc = 0.f;
-  for (int d = lane * 4; d < D; d += 128) acc = dot4(load4<T>(o + row * D + d), load4<T>(g + row * D + d), acc);
+  for (int d = lane * 4; d < D; d += 128) acc = dot4(load4(o + row * D + d), load4(g + row * D + d), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p) {
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 1;
@@ -237,8 +217,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
   const int G = p.H / p.KV;
   const int k_start = blockIdx.x * BK;
 
-  load_tile<T, D, BK>(sk, LD, static_cast<const T*>(p.k), b, k_start, p.T, p.KV, kvh);
-  load_tile<T, D, BK>(sv, LD, static_cast<const T*>(p.v), b, k_start, p.T, p.KV, kvh);
+  load_tile<D, BK>(sk, LD, p.k, b, k_start, p.T, p.KV, kvh);
+  load_tile<D, BK>(sv, LD, p.v, b, k_start, p.T, p.KV, kvh);
 
   float dk[4][NJ], dv[4][NJ];
 #pragma unroll
@@ -254,8 +234,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
       const int q_start = q_row0 + p.q_offset;
       if (!any_visible(p, q_start, q_start + BQ - 1, k_start, k_start + BK - 1)) continue;  // uniform
       __syncthreads();  // the previous tile's readers of sq, sg, sp, sds are done
-      load_tile<T, D, BQ>(sq, LD, static_cast<const T*>(p.q), b, q_row0, p.S, p.H, h);
-      load_tile<T, D, BQ>(sg, LD, static_cast<const T*>(p.g), b, q_row0, p.S, p.H, h);
+      load_tile<D, BQ>(sq, LD, p.q, b, q_row0, p.S, p.H, h);
+      load_tile<D, BQ>(sg, LD, p.g, b, q_row0, p.S, p.H, h);
       load_rows(slse, sdelta, p, b, h, q_row0);
       __syncthreads();
       probs_and_dS<D>(p, sq, sg, sk, sv, slse, sdelta, sp, sds, q_row0, k_start);
@@ -289,17 +269,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(const Params p)
     const int key = k_start + ty + 16 * i;
     if (key >= p.T) continue;
     const size_t off = ((static_cast<size_t>(b) * p.T + key) * p.KV + kvh) * D;
-    T* dkrow = static_cast<T*>(p.dk) + off;
-    T* dvrow = static_cast<T*>(p.dv) + off;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      dkrow[tx + 16 * j] = from_f<T>(dk[i][j]);
-      dvrow[tx + 16 * j] = from_f<T>(dv[i][j]);
+      p.dk[off + tx + 16 * j] = dk[i][j];
+      p.dv[off + tx + 16 * j] = dv[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 1;
@@ -320,8 +298,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   const int q_row0 = qi * BQ;
   const int q_start = q_row0 + p.q_offset;
 
-  load_tile<T, D, BQ>(sq, LD, static_cast<const T*>(p.q), b, q_row0, p.S, p.H, h);
-  load_tile<T, D, BQ>(sg, LD, static_cast<const T*>(p.g), b, q_row0, p.S, p.H, h);
+  load_tile<D, BQ>(sq, LD, p.q, b, q_row0, p.S, p.H, h);
+  load_tile<D, BQ>(sg, LD, p.g, b, q_row0, p.S, p.H, h);
   load_rows(slse, sdelta, p, b, h, q_row0);
 
   float dq[4][NJ];
@@ -335,8 +313,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
     const int k_start = ki * BK;
     if (!any_visible(p, q_start, q_start + BQ - 1, k_start, k_start + BK - 1)) continue;  // uniform
     __syncthreads();  // the previous tile's readers of sk, sv, sds are done
-    load_tile<T, D, BK>(sk, LD, static_cast<const T*>(p.k), b, k_start, p.T, p.KV, kvh);
-    load_tile<T, D, BK>(sv, LD, static_cast<const T*>(p.v), b, k_start, p.T, p.KV, kvh);
+    load_tile<D, BK>(sk, LD, p.k, b, k_start, p.T, p.KV, kvh);
+    load_tile<D, BK>(sv, LD, p.v, b, k_start, p.T, p.KV, kvh);
     __syncthreads();
     probs_and_dS<D>(p, sq, sg, sk, sv, slse, sdelta, nullptr, sds, q_row0, k_start);
     __syncthreads();
@@ -359,47 +337,36 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const Params p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q_row0 + ty + 16 * i;
     if (row >= p.S) continue;
-    T* dqrow = static_cast<T*>(p.dq) + ((static_cast<size_t>(b) * p.S + row) * p.H + h) * D;
+    float* dqrow = p.dq + ((static_cast<size_t>(b) * p.S + row) * p.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dqrow[tx + 16 * j] = from_f<T>(dq[i][j]);
+    for (int j = 0; j < NJ; ++j) dqrow[tx + 16 * j] = dq[i][j];
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 1;
   const long long rows = static_cast<long long>(p.B) * p.S * p.H;
-  delta_kernel<T, D><<<static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0,
-                       stream>>>(static_cast<const T*>(p.o), static_cast<const T*>(p.g), p.delta, rows);
+  delta_kernel<D><<<static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0, stream>>>(
+      p.o, p.g, p.delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   if (p.T > 0) {
     const int smem = static_cast<int>(sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BQ * LDP + 2 * BQ));
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_kernel<T, D><<<dim3((p.T + BK - 1) / BK, p.B * p.KV), THREADS, smem, stream>>>(p);
+    flash_bwd_dkdv_kernel<D><<<dim3((p.T + BK - 1) / BK, p.B * p.KV), THREADS, smem, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
 
   const int smem = static_cast<int>(sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * LDP + 2 * BQ));
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<dim3((p.S + BQ - 1) / BQ, p.B * p.H), THREADS, smem, stream>>>(p);
+  flash_bwd_dq_kernel<D><<<dim3((p.S + BQ - 1) / BQ, p.B * p.H), THREADS, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const Params& p, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -407,23 +374,26 @@ cudaError_t dispatch_d(int D, const Params& p, cudaStream_t stream) {
 // Launches on `stream` (PyTorch's current stream) and returns the first
 // failing launch's cudaError_t, else 0; the caller raises on anything but 0.
 // q, o, dO, dq (B, S, H, D); k, v, dk, dv (B, T, KV, D); lse and the scratch
-// delta (B, S, H) fp32; all contiguous, 16-byte aligned, of one dtype (0:
-// fp32, 1: bf16).  `window` / `chunk` apply when `has_window` / `has_chunk`.
-// The wrapper has checked shapes, types and alignment.
-extern "C" int veer_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                        const float* lse, const void* g, float* delta, void* dq,
-                                        void* dk, void* dv, int dtype, int B, int S, int T, int H,
-                                        int KV, int D, int causal, int has_window, int window,
-                                        int has_chunk, int chunk, int q_offset, float scale,
-                                        void* stream) {
+// delta (B, S, H) fp32; all fp32, contiguous, 16-byte aligned.  `window` /
+// `chunk` apply when `has_window` / `has_chunk`.  The wrapper has checked
+// shapes, types and alignment.
+extern "C" int veer_flash_attention_bwd(const float* q, const float* k, const float* v, const float* o,
+                                        const float* lse, const float* g, float* delta, float* dq,
+                                        float* dk, float* dv, int B, int S, int T, int H, int KV, int D,
+                                        int causal, int has_window, int window, int has_chunk, int chunk,
+                                        int q_offset, float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, lse, g, delta, dq, dk, dv, B, S, T, H, KV,
                  causal, has_window, window, has_chunk, chunk, q_offset, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch_d<float>(D, p, s));
-  if (dtype == 1) return static_cast<int>(dispatch_d<__nv_bfloat16>(D, p, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16: return static_cast<int>(launch<16>(p, s));
+    case 32: return static_cast<int>(launch<32>(p, s));
+    case 64: return static_cast<int>(launch<64>(p, s));
+    case 128: return static_cast<int>(launch<128>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* veer_cuda_error_string(int code) {

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (flash_attention_sm90.cu, ssd_scan_sm90.cu): asynchronous copies into
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, ssd_scan_sm90.cu):
+// asynchronous copies into
 // shared memory (16-byte cp.async, and TMA boxes completing on mbarriers),
 // the swizzled shared-memory tile layout that wgmma reads (and TMA writes
 // with the same swizzle), its matrix descriptors, and wgmma.mma_async

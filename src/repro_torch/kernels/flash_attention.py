@@ -25,11 +25,20 @@ reference's ``jax.custom_vjp`` at ``src/repro/kernels/ref.py:94``; the
 masks and ``q_offset`` are not differentiable, as its ``nondiff_argnums``).
 Its forward launches the forward instance with an ``lse`` output (the
 row's natural-log sum of exponentials; serving passes a null pointer) and
-saves (q, k, v, o, lse); its backward is ``flash_attention_bwd``, the
-hand-written ``src/repro_torch/csrc/flash_attention_bwd.cu`` (fp32 or bf16
-inputs, fp32 arithmetic on the CUDA cores), counted by
-``flash_attention_bwd.launches``.  On CPU tensors the wrapper runs the plain
-version, whose gradient is the same custom VJP on the plain forward
+saves (q, k, v, o, lse); its backward is ``flash_attention_bwd``, two
+hand-written instances picked by dtype as the forward's are:
+
+  * bf16: ``src/repro_torch/csrc/flash_attention_bwd_sm90.cu``, every
+    product as ``wgmma`` on the tensor cores (δ, then one block per 128 keys
+    for dK/dV, then one per 128 query rows for dQ; TMA copies; P and dS
+    split into bf16 hi + lo).  Its arithmetic is
+    ``ref.flash_attention_bwd_tc_reference``.
+  * fp32: ``src/repro_torch/csrc/flash_attention_bwd.cu``, fp32 FMAs on the
+    CUDA cores.
+
+``flash_attention_bwd.launches`` counts its launches, ``launches_tc`` and
+``launches_fp32`` those of each instance.  On CPU tensors the wrapper runs
+the plain version, whose gradient is the same custom VJP on the plain forward
 (``ref._flash_fwd_impl``) and ``ref.flash_attention_bwd_reference``.  No path
 returns an output that silently has no graph.
 """
@@ -48,7 +57,8 @@ from repro_torch.kernels.ref import (NEG_INF, _inv_sqrt, flash_attention_bwd_ref
 
 SOURCE = _build.CudaSource("flash_attention")          # the fp32 instance
 SOURCE_TC = _build.CudaSource("flash_attention_sm90")  # the bf16 instance
-SOURCE_BWD = _build.CudaSource("flash_attention_bwd")  # the backward, fp32 and bf16
+SOURCE_BWD = _build.CudaSource("flash_attention_bwd")          # the backward's fp32 instance
+SOURCE_BWD_TC = _build.CudaSource("flash_attention_bwd_sm90")  # its bf16 instance
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims each instance is built for
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32 = 2**31 - 1
@@ -115,9 +125,9 @@ def flash_attention_bwd(
     chunk: Optional[int] = None,
     q_offset: int = 0,
 ):
-    """``(dq, dk, dv)`` in q's, k's and v's dtype: the backward kernel for
-    CUDA tensors, ``ref.flash_attention_bwd_reference`` for CPU tensors,
-    ``ValueError`` for anything else."""
+    """``(dq, dk, dv)`` in q's, k's and v's dtype: the backward instance of
+    their dtype for CUDA tensors, ``ref.flash_attention_bwd_reference`` for
+    CPU tensors, ``ValueError`` for anything else."""
     if _build.on_cpu("flash attention backward", q, k, v, out, lse, g):
         return flash_attention_bwd_reference(q, k, v, out, lse, g, causal=causal, window=window,
                                              chunk=chunk, q_offset=q_offset)
@@ -135,22 +145,31 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0 or H == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
-    lib = _library_bwd()
+    tc = q.dtype == torch.bfloat16
+    lib = _library_bwd_tc() if tc else _library_bwd()
+    if tc:  # lse * log2(e) and δ, each (B, H, S rounded up to 128)
+        scratch = torch.empty((lib.veer_flash_attention_bwd_tc_scratch(B, S, H),), dtype=torch.float32,
+                              device=q.device)
+    else:  # δ
+        scratch = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, k.shape[1], H, k.shape[2],
+            D, *_masks(causal, window, chunk, q_offset), _inv_sqrt(D))
+    fn = lib.veer_flash_attention_bwd_tc if tc else lib.veer_flash_attention_bwd
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.veer_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, S, k.shape[1], H, k.shape[2], D,
-            *_masks(causal, window, chunk, q_offset), _inv_sqrt(D), stream)
+        rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash attention backward kernel")
     flash_attention_bwd.launches += 1
+    if tc:
+        flash_attention_bwd.launches_tc += 1
+    else:
+        flash_attention_bwd.launches_fp32 += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+flash_attention_bwd.launches_tc = 0
+flash_attention_bwd.launches_fp32 = 0
 
 
 def _masks(causal, window, chunk, q_offset):
@@ -241,7 +260,19 @@ def _library_tc() -> ctypes.CDLL:
 def _library_bwd() -> ctypes.CDLL:
     lib = _build.load(SOURCE_BWD)
     lib.veer_flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.veer_flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_bwd_tc() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_BWD_TC)
+    lib.veer_flash_attention_bwd_tc_scratch.argtypes = [ctypes.c_int] * 3
+    lib.veer_flash_attention_bwd_tc_scratch.restype = ctypes.c_longlong
+    lib.veer_flash_attention_bwd_tc.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.veer_flash_attention_bwd_tc.restype = ctypes.c_int
     return lib

@@ -19,8 +19,9 @@ computation a kernel wrapper runs for tensors on the CPU:
   * ``ssd_reference`` — the chunked Mamba-2 SSD scan, kernel 4's plain
     version (with ``_segsum``), and ``ssd_decode_step``, the one-token
     recurrence the decode path runs;
-  * ``flash_attention_tc_reference`` and ``ssd_chunked_reference`` — the
-    arithmetic of the bf16 tensor-core instances of kernels 3 and 4, with
+  * ``flash_attention_tc_reference``, ``flash_attention_bwd_tc_reference``
+    and ``ssd_chunked_reference`` — the arithmetic of the bf16 tensor-core
+    instances of kernel 3, its backward and kernel 4, with
     their operands split into bf16 hi + lo where the kernels split them, so
     that a test can hold each kernel to it tightly and hold it to the plain
     versions above at their tolerances.  Tests and
@@ -330,6 +331,84 @@ def flash_attention_tc_reference(
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+TC_BWD_KEYS = 128    # keys of a dK/dV block of flash_attention_bwd_sm90.cu
+TC_BWD_ROWS = 64     # query rows of each tile it streams
+TC_BWD_DQ_KEYS = 64  # keys of each tile a dQ block streams
+
+
+def flash_attention_bwd_tc_reference(
+    q: torch.Tensor,    # (B, S, H, D)
+    k: torch.Tensor,    # (B, T, KV, D)
+    v: torch.Tensor,    # (B, T, KV, D)
+    out: torch.Tensor,  # (B, S, H, D) the forward's output
+    lse: torch.Tensor,  # (B, S, H) fp32, the forward's natural-log log-sum-exp
+    g: torch.Tensor,    # (B, S, H, D) the gradient of the output
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: Optional[int] = None,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arithmetic of the bf16 flash backward kernel
+    (``csrc/flash_attention_bwd_sm90.cu``): ``δ = rowsum(dO ∘ O)`` in fp32;
+    ``P = exp2(s · (scale · log2 e) − lse · log2 e)``, 0 where a mask hides
+    the pair, and ``dS = P ∘ (dP − δ) · scale`` in fp32, with s and dP the
+    fp32 sums of bf16 products; P and dS split into bf16 hi + lo
+    (``_split_bf16``) for two products each.  dK and dV are summed per
+    block of keys over the group's heads in order and, inside, over query
+    tiles of 64 rows; dQ over key tiles of 64.  Returns ``(dq, dk, dv)`` in
+    q's, k's and v's dtypes."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    f32 = torch.float32
+    scale = torch.tensor(_inv_sqrt(D), dtype=f32)
+    log2e = torch.tensor(LOG2E, dtype=f32)
+    scale2 = (scale * log2e).to(dev)
+    scale = scale.to(dev)
+    qf = q.reshape(B, S, KV, G, D).to(f32)
+    gf = g.reshape(B, S, KV, G, D).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    delta = torch.sum(out.to(f32) * g.to(f32), dim=-1).reshape(B, S, KV, G)
+    lse2 = (lse.to(f32) * log2e.to(dev)).reshape(B, S, KV, G)
+    keep = _block_bias(torch.arange(S, device=dev) + q_offset, torch.arange(T, device=dev), T, causal,
+                       window, chunk) == 0  # (S, T)
+
+    def probs(s, dp, l2, d, kp):
+        p = torch.where(kp, torch.exp2(s * scale2 - l2), 0.0)
+        return p, p * (dp - d) * scale
+
+    # dK and dV: per head of the group, per query tile, keys as rows
+    dk = torch.zeros((B, KV, T, D), dtype=f32, device=dev)
+    dv = torch.zeros((B, KV, T, D), dtype=f32, device=dev)
+    for gi in range(G):
+        for q0 in range(0, S, TC_BWD_ROWS):
+            qt, gt = qf[:, q0:q0 + TC_BWD_ROWS, :, gi], gf[:, q0:q0 + TC_BWD_ROWS, :, gi]  # (B, r, KV, D)
+            st = torch.einsum("btkd,brkd->bktr", kf, qt)
+            dpt = torch.einsum("btkd,brkd->bktr", vf, gt)
+            l2 = lse2[:, q0:q0 + TC_BWD_ROWS, :, gi].permute(0, 2, 1)[:, :, None]
+            d = delta[:, q0:q0 + TC_BWD_ROWS, :, gi].permute(0, 2, 1)[:, :, None]
+            p, ds = probs(st, dpt, l2, d, keep[q0:q0 + TC_BWD_ROWS].T)
+            for part, rhs, acc in ((p, gt, dv), (ds, qt, dk)):
+                hi, lo = _split_bf16(part)
+                acc += torch.einsum("bktr,brkd->bktd", hi, rhs) + torch.einsum("bktr,brkd->bktd", lo, rhs)
+
+    # dQ: per key tile
+    dq = torch.zeros((B, S, KV, G, D), dtype=f32, device=dev)
+    l2 = lse2.permute(0, 2, 3, 1)[..., None]  # (B, KV, G, S, 1)
+    d = delta.permute(0, 2, 3, 1)[..., None]
+    for k0 in range(0, T, TC_BWD_DQ_KEYS):
+        kt, vt = kf[:, k0:k0 + TC_BWD_DQ_KEYS], vf[:, k0:k0 + TC_BWD_DQ_KEYS]
+        s = torch.einsum("bskgd,btkd->bkgst", qf, kt)
+        dp = torch.einsum("bskgd,btkd->bkgst", gf, vt)
+        _, ds = probs(s, dp, l2, d, keep[:, k0:k0 + TC_BWD_DQ_KEYS])
+        hi, lo = _split_bf16(ds)
+        dq += torch.einsum("bkgst,btkd->bskgd", hi, kt) + torch.einsum("bkgst,btkd->bskgd", lo, kt)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def decode_attention_reference(

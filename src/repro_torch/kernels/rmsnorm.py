@@ -12,8 +12,10 @@ PyTorch version.  ``rmsnorm.launches`` counts kernel launches.
 Gradients.  When grad mode is on and x or w requires grad, the wrapper goes
 through ``RMSNorm``, a ``torch.autograd.Function`` that saves (x, w); its
 backward is ``rmsnorm_bwd``, the hand-written
-``src/repro_torch/csrc/rmsnorm_bwd.cu`` (dx in x's dtype, dw in fp32, both
-deterministic), counted by ``rmsnorm_bwd.launches``.  On CPU tensors the
+``src/repro_torch/csrc/rmsnorm_bwd.cu`` (one pass over the rows that reads x
+and g once, writes dx in x's dtype and fp32 partials of dw per strip of
+rows, then the partials summed in a fixed order: deterministic), counted by
+``rmsnorm_bwd.launches``.  On CPU tensors the
 Function runs the plain forward and ``ref.rmsnorm_bwd_reference``.
 """
 
@@ -78,17 +80,17 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float = 
     D = x.shape[-1]
     rows = x.numel() // D if D else 0
     dx = torch.empty_like(x)
-    dw = torch.zeros((D,), dtype=torch.float32, device=x.device)
+    dw = torch.empty((D,), dtype=torch.float32, device=x.device)  # the kernel writes every column
     if rows == 0:
-        return dx, dw
+        return dx, dw.zero_()
     lib = _library_bwd()
-    rs = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    part = torch.empty((lib.veer_rmsnorm_bwd_partials(rows), D), dtype=torch.float32, device=x.device)
+    vec = _vec(x, w, g, dx)
+    part = torch.empty((lib.veer_rmsnorm_bwd_partials(rows, D, vec), D), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.veer_rmsnorm_bwd(x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                                  rs.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], rows, D, float(eps),
-                                  _vec(x, w, g, dx), stream)
+                                  part.data_ptr(), _DTYPES[x.dtype], rows, D, float(eps), vec, stream)
     _build.check(lib, rc, "rmsnorm backward kernel")
     rmsnorm_bwd.launches += 1
     return dx, dw
@@ -148,9 +150,9 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def _library_bwd() -> ctypes.CDLL:
     lib = _build.load(SOURCE_BWD)
-    lib.veer_rmsnorm_bwd_partials.argtypes = [ctypes.c_longlong]
+    lib.veer_rmsnorm_bwd_partials.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     lib.veer_rmsnorm_bwd_partials.restype = ctypes.c_longlong
-    lib.veer_rmsnorm_bwd.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.veer_rmsnorm_bwd.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.veer_rmsnorm_bwd.restype = ctypes.c_int
