@@ -9,12 +9,13 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles the nine kernel sources of ``src/repro_torch/csrc/``
+  2. build       compiles the ten kernel sources of ``src/repro_torch/csrc/``
                  (relational, rmsnorm, flash_attention and ssd_scan for fp32,
                  flash_attention_sm90 and ssd_scan_sm90 for bf16 on the
                  tensor cores, and the backward kernels: flash_attention_bwd
                  for fp32, flash_attention_bwd_sm90 for bf16 on the tensor
-                 cores, rmsnorm_bwd), one nvcc each, all started together.
+                 cores, rmsnorm_bwd, ssd_scan_bwd), one nvcc each, all
+                 started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -105,7 +106,7 @@ Phases (any failure exits non-zero and prints no result):
                  pipeline: two FILTERs through the relational kernel,
                  ``tokenize_pack`` and the sink on the host) through
                  ``ReuseManager`` on a disk store under ``build/`` at the
-                 torch plane, ``corpus_table(250_000)`` a version (cut
+                 torch plane, ``corpus_table(50_000)`` a version (cut
                  from 1M to keep the script well inside its time limit):
                  v1 and v4 executed (each with at least 2 FILTER launches),
                  v2 and v3 served from the store; ``ReuseStats`` equal to a
@@ -234,14 +235,30 @@ Phases (any failure exits non-zero and prints no result):
                  checkpoints every 4 steps, 12 steps; it must resume from
                  step 4 and the final checkpoint must restore bit for bit
                  onto the live parameters; the objects kept against leaves
-                 x saves show the dedup.
+                 x saves show the dedup.  (d) mamba2-2.7b at full width and
+                 depth (64 layers, d 2560, 80 heads of 64, state 128, chunk
+                 256, vocab 50,280; ~2.70e9 parameters), on 2 x 4096 tokens
+                 in its 2 microbatches: gated as (a) (per step 256 SSD
+                 forward launches and 128 SSD backward, all bf16, the SSD
+                 forward on the tensor cores), the control the plain path
+                 with SSD chunks of 128; the SSD backward kernel held to its
+                 plain version on layer 0's own tensors (dA against the
+                 plain version in float64, within the larger of
+                 BWD_FP32_TOL and 2x the fp32 plain version's distance
+                 from it: ``_check_ssd_bwd``); TRAIN_STEPS AdamW steps
+                 whose loss must fall; the SSD backward timed at row 4's
+                 shape (B=2, L=4096, H=80, P=64, N=128, chunk 256, bf16)
+                 beside its plain version and its bound.  (e) jamba-1.5-large-398b's layer 2
+                 alone (``jamba_layer2``: a mamba mixer at d 8192, 256 SSD
+                 heads, and the dense FFN of d_ff 24,576), one step gated as
+                 (b), the control SSD chunks of 128.
   16. report     one JSON line of kernels (launches summed over the six
                  serving paths and phase 15's training steps, the
                  relational kernel's over phases 4, 7, 7b's service and
-                 7c's manager, the backward kernels' over 15a-b; relational,
+                 7c's manager, the backward kernels' over 15a-e; relational,
                  flash attention, its backward and the SSD scan also by
-                 instance), the card's name and power limit, then the result
-                 line.
+                 instance, the SSD backward by dtype), the card's name and
+                 power limit, then the result line.
 
 Options: ``--seed N`` (default 0) seeds the serving and training phases'
 weights and tokens.
@@ -318,6 +335,7 @@ def _reset_counts():
         R.relational.launches_by_instance[route] = 0
     for w in (FA.flash_attention, FA.flash_attention_bwd, SS.ssd_scan):
         w.launches = w.launches_tc = w.launches_fp32 = 0
+    SS.ssd_scan_bwd.launches = SS.ssd_scan_bwd.launches_bf16 = SS.ssd_scan_bwd.launches_fp32 = 0
 
 
 def _counts():
@@ -325,16 +343,30 @@ def _counts():
     return {"relational": R.relational.launches, "rmsnorm": RMS.rmsnorm.launches,
             "flash_attention": FA.flash_attention.launches, "ssd_scan": SS.ssd_scan.launches,
             "flash_attention_bwd": FA.flash_attention_bwd.launches,
-            "rmsnorm_bwd": RMS.rmsnorm_bwd.launches}
+            "rmsnorm_bwd": RMS.rmsnorm_bwd.launches, "ssd_scan_bwd": SS.ssd_scan_bwd.launches}
+
+
+# the instance each kernel with two runs on the bf16 main path: ``tc`` on the
+# tensor cores (the other, ``fp32``, on the CUDA cores); the SSD backward's
+# two are one source on the CUDA cores, by input dtype
+MAIN_INSTANCE = {"flash_attention": "tc", "flash_attention_bwd": "tc", "ssd_scan": "tc",
+                 "ssd_scan_bwd": "bf16"}
 
 
 def _instance_counts():
-    """Launches of each instance of the kernels that have two: ``tc`` (bf16,
-    tensor cores) and ``fp32`` (CUDA cores)."""
+    """Launches of each instance of the kernels that have two (``MAIN_INSTANCE``
+    and ``fp32``)."""
     _, _, FA, SS = _kernel_modules()
-    return {name: {"tc": w.launches_tc, "fp32": w.launches_fp32}
-            for name, w in (("flash_attention", FA.flash_attention),
-                            ("flash_attention_bwd", FA.flash_attention_bwd), ("ssd_scan", SS.ssd_scan))}
+    wrappers = {"flash_attention": FA.flash_attention, "flash_attention_bwd": FA.flash_attention_bwd,
+                "ssd_scan": SS.ssd_scan, "ssd_scan_bwd": SS.ssd_scan_bwd}
+    return {name: {main: getattr(wrappers[name], f"launches_{main}"), "fp32": wrappers[name].launches_fp32}
+            for name, main in MAIN_INSTANCE.items()}
+
+
+def _on_main_instance(want, inst):
+    """Whether ``inst`` (``_instance_counts``) puts all of ``want``'s
+    launches on each kernel's main-path instance."""
+    return inst == {k: {main: want[k], "fp32": 0} for k, main in MAIN_INSTANCE.items()}
 
 
 def _relational_instances():
@@ -349,7 +381,7 @@ def phase_build():
     R, RMS, FA, SS = _kernel_modules()
     t0 = time.perf_counter()
     infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, FA.SOURCE_TC, SS.SOURCE, SS.SOURCE_TC,
-                         FA.SOURCE_BWD, FA.SOURCE_BWD_TC, RMS.SOURCE_BWD)
+                         FA.SOURCE_BWD, FA.SOURCE_BWD_TC, RMS.SOURCE_BWD, SS.SOURCE_BWD)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
@@ -358,7 +390,7 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
     # load each and check the relational plan layout against the source
     R._library(), RMS._library(), FA._library(), FA._library_tc(), SS._library(), SS._library_tc()
-    FA._library_bwd(), FA._library_bwd_tc(), RMS._library_bwd()
+    FA._library_bwd(), FA._library_bwd_tc(), RMS._library_bwd(), SS._library_bwd()
     log(f"build: all kernels in {wall:.2f} s of wall time")
     return {"seconds": wall}
 
@@ -1750,12 +1782,13 @@ def phase_service(card: str, served):
     return {"launches": launches, "fleet_launches": sum(x or 0 for x in per_worker)}
 
 
-# -- 7c. paper use case 1: the ingestion pipeline at 250k documents ----------------
+# -- 7c. paper use case 1: the ingestion pipeline at 50k documents -----------------
 
 # documents a version: at 1M the phase took 381 s of a 1,044 s script on an H100
-# 80GB HBM3 at 700 W (PERF.md), so the corpus is cut to a quarter; none of the
-# phase's checks depends on its size
-INGEST_DOCS = 250_000
+# 80GB HBM3 at 700 W, at 250k 103 s of 886 s once phases 15d-e came (PERF.md),
+# so the corpus is cut to a twentieth; none of the phase's checks depends on its
+# size
+INGEST_DOCS = 50_000
 REUSE_COUNTERS = ("submissions", "sink_hits", "sink_misses", "executions",
                   "dedup_skipped_writes", "verdict_cache_hits", "certified_reuses",
                   "interior_hits", "ops_executed", "ops_reused")
@@ -2430,7 +2463,8 @@ def _expected_launches(cfg):
     if cfg.family == "audio":
         n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
         return {"relational": 0, "flash_attention": n_enc + 2 * n_dec, "ssd_scan": 0,
-                "rmsnorm": 2 * n_enc + 3 * n_dec + 2, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                "rmsnorm": 2 * n_enc + 3 * n_dec + 2, "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                "ssd_scan_bwd": 0}
     mask = cfg.moe_layer_mask()
     kinds = cfg.pattern[:cfg.n_layers]
     return {"relational": 0,
@@ -2438,7 +2472,7 @@ def _expected_launches(cfg):
             "ssd_scan": sum(k == "mamba" for k in kinds),
             "rmsnorm": 1 + sum((2 if k == "mamba" else 1) + (1 if mask[i] or cfg.d_ff > 0 else 0)
                                for i, k in enumerate(kinds)),
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan_bwd": 0}
 
 
 class _kernels_on_plain_inputs:
@@ -2582,7 +2616,7 @@ def _log_profile(tag, what, prof):
         log(f"{tag}: {what}: device time not measured (the profiler saw no device activity)")
         return
     kinds = ", ".join(f"{k} {v * 1e3:.2f}" for k, v in prof["by_kind"].items())
-    top = "; ".join(f"{name[:60]} {sec * 1e3:.2f}" for sec, name in prof["top"])
+    top = "; ".join(f"{name[:160]} {sec * 1e3:.2f}" for sec, name in prof["top"])
     log(f"{tag}: {what}: wall {prof['wall_s'] * 1e3:.2f} ms, device busy {prof['busy_s'] * 1e3:.2f} ms "
         f"(idle share {prof['idle_share']:.4f}); device ms by kind: {kinds}; top kernels (ms): {top}")
 
@@ -2648,7 +2682,7 @@ def _serve(tag, cfg, seed, control, control_what, extra=None, inputs=None):
         fail(f"{tag}: forward_step launched {fwd_counts}, expected {expect}")
     # every flash attention and SSD launch of the bf16 forward on the tensor cores
     fwd_inst = _instance_counts()
-    if fwd_inst != {k: {"tc": expect[k], "fp32": 0} for k in fwd_inst}:
+    if not _on_main_instance(expect, fwd_inst):
         fail(f"{tag}: forward_step's launches by instance {fwd_inst}: not all on the tensor-core "
              f"instance")
     if tuple(logits.shape) != (B, n_prefix + S, cfg.vocab) or not bool(torch.isfinite(logits).all()):
@@ -2817,7 +2851,7 @@ def _serve(tag, cfg, seed, control, control_what, extra=None, inputs=None):
         for k, n in extra(model, plain, params, gen).items():
             launches[k] += n
             if k in fwd_inst:  # extra checks that these are tensor-core launches
-                fwd_inst[k]["tc"] += n
+                fwd_inst[k][MAIN_INSTANCE[k]] += n
     # greedy_generate launches neither (its decode steps run the plain mixers)
     return {"launches": launches, "instances": fwd_inst, "t_forward": t_fwd2,
             "t_prefill": t_prefill, "decode_tps": decode_tps, "peak_bytes": peak}
@@ -3041,6 +3075,8 @@ RESTART_EVERY = 4
 TRAIN_KINDS = (
     ("flash_attention_bwd", ("flash_bwd_", "delta_kernel")),
     ("flash_attention_fwd", ("flash_fwd_",)),
+    ("ssd_scan_bwd", ("ssd_bwd_",)),
+    ("ssd_scan_fwd", ("ssd_scan_kernel", "ssd_tc_")),
     ("rmsnorm_bwd", ("rmsnorm_bwd_",)),
     ("rmsnorm_fwd", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "wgmma", "sm90_")),
@@ -3048,30 +3084,38 @@ TRAIN_KINDS = (
 )
 
 
-def _expected_train_launches(cfg):
-    """Kernel launches of one training step of ``cfg`` (``remat`` on): each
-    checkpointed layer runs its forward twice (the step, the recompute) and
-    its backward once; whisper's encoder and the final norms are not
-    checkpointed (as the reference's), so they run forward once."""
+def _expected_train_launches(cfg, microbatches=1):
+    """Kernel launches of one training step of ``cfg`` (``remat`` on) in
+    ``microbatches``: per microbatch, each checkpointed layer runs its
+    forward twice (the step, the recompute) and its backward once; whisper's
+    encoder and the final norms are not checkpointed (as the reference's),
+    so they run forward once."""
     f = _expected_launches(cfg)
     if cfg.family == "audio":
         n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
         fwd = {"flash_attention": n_enc + 2 * (2 * n_dec), "rmsnorm": 2 * n_enc + 1 + 2 * (3 * n_dec) + 1}
     else:
-        fwd = {"flash_attention": 2 * f["flash_attention"], "rmsnorm": 2 * (f["rmsnorm"] - 1) + 1}
-    return dict(f, **fwd, flash_attention_bwd=f["flash_attention"], rmsnorm_bwd=f["rmsnorm"])
+        fwd = {"flash_attention": 2 * f["flash_attention"], "ssd_scan": 2 * f["ssd_scan"],
+               "rmsnorm": 2 * (f["rmsnorm"] - 1) + 1}
+    one = dict(f, **fwd, flash_attention_bwd=f["flash_attention"], rmsnorm_bwd=f["rmsnorm"],
+               ssd_scan_bwd=f["ssd_scan"])
+    return {k: microbatches * n for k, n in one.items()}
 
 
 class _last_bwd_inputs:
-    """Keep the inputs of the last flash attention and RMSNorm backward
+    """Keep the inputs of the last flash attention, RMSNorm and SSD backward
     launch of a step: the backward runs the layers in reverse, so these are
-    layer 0's attention and its first norm (the encoder's first layer, for
-    the encoder-decoder)."""
+    layer 0's attention or SSD scan and its first norm (the encoder's first
+    layer, for the encoder-decoder; the last microbatch's).  None for a
+    kernel the step does not run."""
 
     def __enter__(self):
-        _, RMS, FA, _ = _kernel_modules()
+        import torch
+
+        _, RMS, FA, SS = _kernel_modules()
         self.FA, self.RMS, self.fa, self.rms = FA, RMS, FA.flash_attention_bwd, RMS.rmsnorm_bwd
-        self.flash = self.norm = None
+        self.SS, self.ssd = SS, SS.ssd_scan_bwd
+        self.flash = self.norm = self.scan = None
 
         def fa(q, k, v, out, lse, g, **masks):
             self.flash = tuple(t.detach() for t in (q, k, v, out, lse, g)) + (masks,)
@@ -3081,17 +3125,25 @@ class _last_bwd_inputs:
             self.norm = tuple(t.detach() for t in (x, w, g)) + (eps,)
             return self.rms(x, w, g, eps)
 
+        def ssd(x, dt, A, Bm, Cm, dy, **kw):
+            self.scan = tuple(t.detach() for t in (x, dt, A, Bm, Cm, dy)) + (
+                {k: v.detach() if torch.is_tensor(v) else v for k, v in kw.items()},)
+            return self.ssd(x, dt, A, Bm, Cm, dy, **kw)
+
         # a wrapper launches through the original, which counts on the
         # module's name for itself, the stand-in while recording
         fa.launches = fa.launches_tc = fa.launches_fp32 = rms.launches = 0
-        FA.flash_attention_bwd, RMS.rmsnorm_bwd = self.stand_ins = fa, rms
+        ssd.launches = ssd.launches_bf16 = ssd.launches_fp32 = 0
+        FA.flash_attention_bwd, RMS.rmsnorm_bwd, SS.ssd_scan_bwd = self.stand_ins = fa, rms, ssd
         return self
 
     def __exit__(self, *exc):
         for name in ("launches", "launches_tc", "launches_fp32"):
             setattr(self.fa, name, getattr(self.fa, name) + getattr(self.stand_ins[0], name))
         self.rms.launches += self.stand_ins[1].launches
-        self.FA.flash_attention_bwd, self.RMS.rmsnorm_bwd = self.fa, self.rms
+        for name in ("launches", "launches_bf16", "launches_fp32"):
+            setattr(self.ssd, name, getattr(self.ssd, name) + getattr(self.stand_ins[2], name))
+        self.FA.flash_attention_bwd, self.RMS.rmsnorm_bwd, self.SS.ssd_scan_bwd = self.fa, self.rms, self.ssd
 
 
 def _bwd_gap(got, want):
@@ -3110,33 +3162,20 @@ def _bwd_gap(got, want):
 
 
 def _check_bwd_kernels(tag, rec):
-    """Both backward kernels against their plain versions on the main path's
-    own tensors (``rec``: layer 0's), in bf16 as they ran and in fp32 (the
-    inputs cast up, the fp32 forward instance's o and lse).  Returns the
-    largest difference of each kernel."""
+    """The backward kernels a step ran against their plain versions on the
+    main path's own tensors (``rec``: layer 0's), in bf16 as they ran and in
+    fp32 (the inputs cast up; for flash attention, the fp32 forward
+    instance's o and lse).  Returns the largest difference of each kernel."""
     import torch
 
     from repro_torch.kernels import ref
 
-    _, RMS, FA, _ = _kernel_modules()
-    q, k, v, o, lse, g, masks = rec.flash
+    _, RMS, FA, SS = _kernel_modules()
+    worst = {}
+    if rec.flash is not None:
+        worst["flash_attention_bwd"] = _check_flash_bwd(tag, rec.flash)
     x, w, gx, eps = rec.norm
-    worst = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
-    up = [t.float() for t in (q, k, v, g)]
-    o32, lse32 = FA._launch(*up[:3], masks["causal"], masks["window"], masks["chunk"], masks["q_offset"],
-                            with_lse=True)
-    for dt, args in (("bf16", (q, k, v, o, lse, g)), ("fp32", (*up[:3], o32, lse32, up[3]))):
-        got = FA.flash_attention_bwd(*args, **masks)
-        want = ref.flash_attention_bwd_reference(*args, **masks)
-        torch.cuda.synchronize()
-        for what, a, b in zip(("dq", "dk", "dv"), got, want):
-            err, ok = _bwd_gap(a, b)
-            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
-            log(f"{tag}: flash attention backward {dt} {what} {tuple(a.shape)} {masks}: max abs err "
-                f"{err:.3e} (largest |plain| {float(b.float().abs().max()):.3e})")
-            if not ok:
-                fail(f"{tag}: flash attention backward {dt} {what} parts from its plain version by {err:.3e}")
-        del got, want
+    worst["rmsnorm_bwd"] = 0.0
     for dt, args in (("bf16", (x, w, gx)), ("fp32", (x.float(), w, gx.float()))):
         got = RMS.rmsnorm_bwd(*args, eps)
         want = ref.rmsnorm_bwd_reference(*args, eps)
@@ -3148,6 +3187,76 @@ def _check_bwd_kernels(tag, rec):
                 f"(largest |plain| {float(b.float().abs().max()):.3e})")
             if not ok:
                 fail(f"{tag}: rmsnorm backward {dt} {what} parts from its plain version by {err:.3e}")
+    if rec.scan is not None:
+        worst["ssd_scan_bwd"] = _check_ssd_bwd(tag, rec.scan)
+    return worst
+
+
+SSD_GRADS = ("dx", "d_dt", "dA", "dBm", "dCm", "d_initial_state")
+
+
+def _check_ssd_bwd(tag, scan):
+    """The SSD backward kernel against ``ref.ssd_bwd_reference`` on the
+    step's own (x, dt, A, B, C, dy), with x, B, C and dy in bf16 as they ran
+    and cast up to fp32: ``_bwd_gap``'s tolerances, but dA against the plain
+    version on the same inputs in float64, within the larger of
+    BWD_FP32_TOL x its largest value and CONTROL_FACTOR x the fp32 plain
+    version's distance from it (dA A = sum_k cs_k dcs_k over B L terms with
+    |cs| up to ~100 cancels).  Returns the largest difference."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    SS = _kernel_modules()[3]
+    x, dt, A, Bm, Cm, dy, kw = scan
+    up = {k: v.double() if torch.is_tensor(v) else v for k, v in kw.items()}
+    exact_dA = ref.ssd_bwd_reference(*(t.double() for t in (x, dt, A, Bm, Cm, dy)), **up)[2]
+    worst = 0.0
+    for name, args in (("bf16", (x, dt, A, Bm, Cm, dy)),
+                       ("fp32", (x.float(), dt, A, Bm.float(), Cm.float(), dy.float()))):
+        got = SS.ssd_scan_bwd(*args, **kw)
+        want = ref.ssd_bwd_reference(*args, **kw)
+        torch.cuda.synchronize()
+        for what, a, b in zip(SSD_GRADS, got, want):
+            err, ok = _bwd_gap(a, b)
+            note = ""
+            if what == "dA":
+                err, ctrl = (float((t.double() - exact_dA).abs().max()) for t in (a, b))
+                ok = err <= max(BWD_FP32_TOL * float(exact_dA.abs().max()), CONTROL_FACTOR * ctrl)
+                note = f"; against float64 plain, the fp32 plain version {ctrl:.3e} from it"
+            worst = max(worst, err)
+            log(f"{tag}: ssd_scan backward {name} {what} {tuple(a.shape)} ({tuple(x.shape)}, chunk "
+                f"{kw['chunk']}): max abs err {err:.3e} (largest |plain| {float(b.float().abs().max()):.3e}"
+                f"{note})")
+            if not ok:
+                fail(f"{tag}: ssd_scan backward {name} {what} parts from its plain version by {err:.3e}")
+        del got, want
+    return worst
+
+
+def _check_flash_bwd(tag, flash):
+    import torch
+
+    from repro_torch.kernels import ref
+
+    FA = _kernel_modules()[2]
+    q, k, v, o, lse, g, masks = flash
+    worst = 0.0
+    up = [t.float() for t in (q, k, v, g)]
+    o32, lse32 = FA._launch(*up[:3], masks["causal"], masks["window"], masks["chunk"], masks["q_offset"],
+                            with_lse=True)
+    for dt, args in (("bf16", (q, k, v, o, lse, g)), ("fp32", (*up[:3], o32, lse32, up[3]))):
+        got = FA.flash_attention_bwd(*args, **masks)
+        want = ref.flash_attention_bwd_reference(*args, **masks)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            err, ok = _bwd_gap(a, b)
+            worst = max(worst, err)
+            log(f"{tag}: flash attention backward {dt} {what} {tuple(a.shape)} {masks}: max abs err "
+                f"{err:.3e} (largest |plain| {float(b.float().abs().max()):.3e})")
+            if not ok:
+                fail(f"{tag}: flash attention backward {dt} {what} parts from its plain version by {err:.3e}")
+        del got, want
     del up, o32, lse32
     return worst
 
@@ -3202,15 +3311,20 @@ def _time_bwd_kernels(tag, rec):
     return {"flash_attention_bwd": fa, "rmsnorm_bwd": rms}
 
 
-def _grad_gate(tag, model, plain, params, batch, control):
+def _grad_gate(tag, model, plain, params, batch, control, microbatches=1):
     """Loss and gradients through the kernels against the plain path's, leaf
     by leaf, beside ``control()`` (a context in which the plain path sums in
-    another order): the loss within LOSS_TOL + LOSS_TOL x |plain|, each
-    leaf's relative L2 error within CONTROL_FACTOR x the control's or
-    GRAD_FLOOR.  One gradient set is freed before the next is made.  Returns
-    the kernel path's step launches and the layer-0 backward inputs."""
+    another order), each in ``microbatches``: the loss within LOSS_TOL +
+    LOSS_TOL x |plain|, each leaf's relative L2 error within CONTROL_FACTOR
+    x the control's or GRAD_FLOOR.  One gradient set is freed before the
+    next is made.  Returns the kernel path's step launches and the layer-0
+    backward inputs."""
+    import functools
+
     from repro_torch.models.layers import tree_leaves
     from repro_torch.train import loss_and_grads
+
+    loss_and_grads = functools.partial(loss_and_grads, microbatches=microbatches)
 
     def rel(a, b):
         return {p: float((a[p] - b[p]).norm() / b[p].norm().clamp_min(1e-30)) for p in b}
@@ -3253,25 +3367,25 @@ def _grad_gate(tag, model, plain, params, batch, control):
     return counts, inst, rec, loss_p
 
 
-def _check_step_launches(tag, cfg, counts, inst, steps=1):
-    want = {k: steps * n for k, n in _expected_train_launches(cfg).items()}
+def _check_step_launches(tag, cfg, counts, inst, steps=1, microbatches=1):
+    want = {k: steps * n for k, n in _expected_train_launches(cfg, microbatches).items()}
     if counts != want:
         fail(f"{tag}: {steps} training step(s) launched {counts}, expected {want}")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if inst[name] != {"tc": want[name], "fp32": 0}:
-            fail(f"{tag}: the training step's {name} launches by instance {inst[name]}: not all on the "
-                 f"tensor-core instance")
+    if not _on_main_instance(want, inst):
+        fail(f"{tag}: the training step's launches by instance {inst}: not all on the tensor-core "
+             f"instance (the SSD backward's: bf16)")
 
 
-def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
+def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False, microbatches=1):
     """Train ``cfg`` from weights drawn from ``seed``: the loss and gradient
-    gate (``_grad_gate``), both backward kernels held to their plain versions
-    on layer 0's tensors (and timed, with ``time_kernels``), then ``steps``
-    AdamW steps through
+    gate (``_grad_gate``), the backward kernels the step ran held to their
+    plain versions on layer 0's tensors (flash attention's and RMSNorm's
+    also timed, with ``time_kernels``), then ``steps`` AdamW steps through
     ``make_train_step`` on one repeated batch (the main path: launches
     counted from 0 around it, the loss must fall when ``steps`` > 1), one
-    profiled step, and a step with ``microbatches=2`` (logged).  Frees every
-    tensor when it returns."""
+    profiled step, and a step with ``microbatches=2`` (logged); the gate,
+    the steps and the profile in ``microbatches``.  Frees every tensor when
+    it returns."""
     import gc
 
     import torch
@@ -3293,8 +3407,8 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
     batch = batch_fn(gen)
     tokens = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
 
-    counts, inst, rec, loss_plain = _grad_gate(tag, model, plain, params, batch, control)
-    _check_step_launches(tag, cfg, counts, inst)
+    counts, inst, rec, loss_plain = _grad_gate(tag, model, plain, params, batch, control, microbatches)
+    _check_step_launches(tag, cfg, counts, inst, microbatches=microbatches)
     worst = _check_bwd_kernels(tag, rec)
     timing = _time_bwd_kernels(tag, rec) if time_kernels else None
     del rec
@@ -3303,7 +3417,7 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
 
     opt = AdamW(AdamWConfig(lr=TRAIN_LR, warmup_steps=1, zero1=False))
     state = opt.init(params)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, microbatches=microbatches)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     _reset_counts()
@@ -3313,7 +3427,7 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
         times.append(dt)
     launches, launches_inst = _counts(), _instance_counts()
     peak = torch.cuda.max_memory_allocated()
-    _check_step_launches(tag, cfg, launches, launches_inst, steps)
+    _check_step_launches(tag, cfg, launches, launches_inst, steps, microbatches)
     if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
         fail(f"{tag}: a step's loss is not finite: {losses}")
     if steps > 1 and not losses[-1] < losses[0]:
@@ -3321,7 +3435,8 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
     if abs(losses[0] - loss_plain) > LOSS_TOL + LOSS_TOL * abs(loss_plain):
         fail(f"{tag}: the first step's loss {losses[0]} parts from the plain path's {loss_plain}")
     best = min(times[1:]) if steps > 1 else times[0]
-    log(f"{tag}: {steps} AdamW step(s) (lr {TRAIN_LR}) on one batch of {tokens} tokens: losses "
+    log(f"{tag}: {steps} AdamW step(s) (lr {TRAIN_LR}) on one batch of {tokens} tokens in {microbatches} "
+        f"microbatch(es): losses "
         + ", ".join(f"{x:.4f}" for x in losses) + f"; step wall times "
         + ", ".join(f"{t:.3f}" for t in times) + f" s; {tokens / best:.1f} tokens/s at the fastest "
         f"step after the first; launches {launches}; device memory high-water mark {peak / 2**30:.2f} "
@@ -3331,7 +3446,7 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
     holder = {}
 
     def grads_part():
-        holder["lg"] = loss_and_grads(model, params, batch)
+        holder["lg"] = loss_and_grads(model, params, batch, microbatches=microbatches)
 
     prof = _device_profile(grads_part, TRAIN_KINDS, top=8)
     _log_profile(tag, "profiled loss and gradients (a step's forward, recompute and backward)", prof)
@@ -3343,7 +3458,8 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
 
     # microbatching, logged: the loss of the current parameters on the full
     # batch and in two microbatches, and the two-microbatch step's high-water
-    if batch["tokens"].shape[0] % 2 == 0:
+    # (a cell that steps in microbatches has shown that already)
+    if batch["tokens"].shape[0] % 2 == 0 and microbatches == 1:
         full, _ = loss_and_grads(model, params, batch)
         full = float(full)
         torch.cuda.empty_cache()
@@ -3353,7 +3469,7 @@ def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False):
             f"the full batch (difference {abs(float(m2['loss']) - full):.3e}); high-water "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     out = {"launches": launches, "instances": launches_inst, "worst": worst, "timing": timing,
-           "losses": losses, "step_s": best, "peak_bytes": peak}
+           "losses": losses, "step_s": best, "peak_bytes": peak, "n_params": n_params}
     del params, state, batch, model, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -3460,6 +3576,126 @@ def phase_restart(seed: int):
     return {"resumed_from": res.resumed_from, "objects": objects, "leaves": n_leaves, "saves": saves}
 
 
+def _plain_ssd_chunks(size: int):
+    """Context in which the plain path's SSD scan runs in chunks of ``size``
+    (the models' are 256): the same function summed in another order."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = ops.ssd
+
+        def ssd(x, dt, A, Bm, Cm, *, chunk=256, initial_state=None, impl="auto"):
+            if impl == "reference" and x.shape[1] % size == 0:
+                chunk = size
+            return saved(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state, impl=impl)
+
+        ops.ssd = ssd
+        try:
+            yield
+        finally:
+            ops.ssd = saved
+
+    return ctx()
+
+
+def _ssd_bwd_flops(x, Bm, chunk):
+    """The operations of the least work of one SSD backward: C.B^T per
+    (batch, chunk, group) on the causal half; per (batch, head, chunk) on the
+    causal half dy.u^T and the three products with it or with C.B^T (du, dB,
+    dC), and five c P N products (B R^T, u R, dy S_in, and the two scans)."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc, pairs = L // chunk, chunk * (chunk + 1) // 2
+    return 2 * (Bsz * nc * G * N * pairs + Bsz * H * nc * (2 * P * pairs + 2 * N * pairs + 5 * chunk * P * N))
+
+
+def _time_ssd_bwd(tag, seed):
+    """The SSD backward kernel at row 4's shape (``SSD_MAIN`` in bf16, the
+    mamba2-2.7b prefill) on seeded inputs, beside its plain version and its
+    bound: the bytes read and written once, or ``_ssd_bwd_flops`` over the
+    card's peak rate for the inputs' type (bf16: the tensor cores', as
+    ``_ssd_bound_ms`` takes it for the forward), whatever the kernel runs
+    them on.  No PyTorch call computes it (library: none)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    SS = _kernel_modules()[3]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    B, L, H, P, G, N, chunk = (SSD_MAIN[k] for k in ("B", "L", "H", "P", "G", "N", "chunk"))
+    bf16 = torch.bfloat16
+    args = (_randn(gen, (B, L, H, P), bf16, 0.5), F.softplus(_randn(gen, (B, L, H), torch.float32)),
+            -torch.exp(_randn(gen, (H,), torch.float32, 0.3)), _randn(gen, (B, L, G, N), bf16, 0.3),
+            _randn(gen, (B, L, G, N), bf16, 0.3), _randn(gen, (B, L, H, P), bf16, 0.5))
+    grads = SS.ssd_scan_bwd(*args, chunk=chunk)
+    nbytes = sum(t.numel() * t.element_size() for t in args + grads)
+    flops = _ssd_bwd_flops(args[0], args[3], chunk)
+    bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOP_PER_S)
+    t = {"ms": _time_ms(lambda: SS.ssd_scan_bwd(*args, chunk=chunk)),
+         "plain_ms": _time_ms(lambda: ref.ssd_bwd_reference(*args, chunk=chunk), reps=3),
+         "library_ms": None, "bound_ms": bound, "bound_by": by}
+    log(f"{tag}: ssd_scan backward at B={B} L={L} H={H} P={P} G={G} N={N} chunk {chunk} bf16: kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {flops} "
+        f"operations at the bf16 tensor-core rate, {nbytes} bytes); kernel at "
+        f"{flops / t['ms'] / 1e9:.2f} TFLOP/s, {100 * bound / t['ms']:.2f}% of the bound")
+    return t
+
+
+def phase_train_mamba(seed: int):
+    """15d: mamba2-2.7b at full width and depth (64 layers, d 2560, 80 heads
+    of 64, state 128, chunk 256, vocab 50,280) on 2 x 4097 tokens in its
+    ``train_microbatches`` (2): the gate beside the plain path with SSD
+    chunks of 128, the SSD backward kernel on layer 0's tensors, TRAIN_STEPS
+    AdamW steps whose loss must fall; then the SSD backward timed at row 4's
+    shape."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("mamba2-2.7b")
+    out = _train_cell(
+        "train-mamba", cfg, seed,
+        lambda gen: {"tokens": torch.randint(2, cfg.vocab, TRAIN_TOKENS, generator=gen, device="cuda")},
+        lambda: _plain_ssd_chunks(128), TRAIN_STEPS, microbatches=cfg.train_microbatches)
+    out["timing"] = {"ssd_scan_bwd": _time_ssd_bwd("train-mamba", seed)}
+    return out
+
+
+def jamba_layer2(base):
+    """Layer 2 of jamba's 72 (counting from 0) alone, at full width: a mamba
+    mixer with the dense SwiGLU FFN (jamba puts MoE on the odd layers)."""
+    import dataclasses
+
+    if base.pattern[2] != "mamba" or base.moe_layer_mask()[2]:
+        raise ValueError(f"{base.name}: layer 2 is not a mamba layer with the dense FFN")
+    cfg = dataclasses.replace(base, n_layers=1, pattern=("mamba",), scan_period=1)
+    if cfg.moe_layer_mask() != (False,):
+        raise ValueError(f"{base.name}: the one-layer window put MoE on layer 2")
+    return cfg
+
+
+def phase_train_jamba(seed: int):
+    """15e: one training step of jamba-1.5-large-398b's layer 2 alone
+    (``jamba_layer2``: d 8192, 256 SSD heads of 64, state 128, d_ff 24,576,
+    vocab 65,536) on 2 x 4097 tokens, gated as 15b, the control the plain
+    path with SSD chunks of 128: the SSD backward at 256 heads, a shape
+    mamba2 does not have.  The MoE layers' training waits for sharding."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = jamba_layer2(get_arch("jamba-1.5-large-398b"))
+    return _train_cell(
+        "train-jamba", cfg, seed,
+        lambda gen: {"tokens": torch.randint(2, cfg.vocab, TRAIN_TOKENS, generator=gen, device="cuda")},
+        lambda: _plain_ssd_chunks(128), 1)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3474,35 +3710,47 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the serving phase's weights and tokens")
     args = ap.parse_args()
-    card = phase_device()
+    t_start = time.perf_counter()
+
+    def run(name, fn, *a):
+        """``fn(*a)``, its wall time logged (the script's limit is 1200 s)."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s (script so far "
+            f"{time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    card = run("device", phase_device)
     import torch
 
-    build = phase_build()
-    max_err, _ = phase_kernel()
-    main = phase_main_path()
-    phase_reuse()
-    phase_verify(card)
-    phase_verify_corpus(card)
-    chain = phase_chain(card)
-    service = phase_service(card, chain.pop("served"))
-    ingest = phase_ingest(card)
+    build = run("build", phase_build)
+    max_err, _ = run("kernel", phase_kernel)
+    main = run("main path", phase_main_path)
+    run("reuse", phase_reuse)
+    run("verify", phase_verify, card)
+    run("verify-corpus", phase_verify_corpus, card)
+    chain = run("chain", phase_chain, card)
+    service = run("service", phase_service, card, chain.pop("served"))
+    ingest = run("ingest", phase_ingest, card)
     # the fleet's forkserver and resource tracker would otherwise outlive it
     # until this process exits: the script leaves nothing running behind it
     from repro_torch.service import stop_helper_processes
 
     stop_helper_processes()
-    llm = phase_llm_kernels(args.seed)
-    serve = phase_serve(args.seed)
-    mamba = phase_serve_mamba(args.seed)
-    scout = phase_serve_scout(args.seed)
-    jamba = phase_serve_jamba(args.seed)
-    whisper = phase_serve_whisper(args.seed)
-    internvl2 = phase_serve_internvl2(args.seed)
-    train = phase_train(args.seed)
-    train_whisper = phase_train_whisper(args.seed)
-    phase_restart(args.seed)
+    llm = run("llm-kernels", phase_llm_kernels, args.seed)
+    serve = run("serve", phase_serve, args.seed)
+    mamba = run("serve-mamba", phase_serve_mamba, args.seed)
+    scout = run("serve-scout", phase_serve_scout, args.seed)
+    jamba = run("serve-jamba", phase_serve_jamba, args.seed)
+    whisper = run("serve-whisper", phase_serve_whisper, args.seed)
+    internvl2 = run("serve-internvl2", phase_serve_internvl2, args.seed)
+    train = run("train", phase_train, args.seed)
+    train_whisper = run("train-whisper", phase_train_whisper, args.seed)
+    run("restart", phase_restart, args.seed)
+    train_mamba = run("train-mamba", phase_train_mamba, args.seed)
+    train_jamba = run("train-jamba", phase_train_jamba, args.seed)
     serving = (serve, mamba, scout, jamba, whisper, internvl2)
-    training = (train, train_whisper)
+    training = (train, train_whisper, train_mamba, train_jamba)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",
@@ -3555,32 +3803,34 @@ def main() -> int:
                  "launches": sum(run["instances"][name][inst] for run in serving + training)}
                 for inst, dt, suffix in (("tc", "bf16", "_sm90"), ("fp32", "fp32", ""))]
     # the backward kernels: launches on phase 15's training steps, times on
-    # 15a's layer-0 tensors (the prefill shape of the forward's row); the flash
-    # backward's entry is its bf16 tensor-core instance, the one training runs
-    for name, entry, source, replaces in (
-            ("flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_sm90",
-             "src/repro/kernels/ref.py:190"),
-            ("rmsnorm_bwd", "rmsnorm_bwd", "rmsnorm_bwd", "src/repro/kernels/ref.py:422")):
-        t = train["timing"][name]
+    # 15a's layer-0 tensors (the prefill shape of the forward's row), the SSD
+    # backward's at row 4's shape in 15d; the flash backward's entry is its
+    # bf16 tensor-core instance, the one training runs
+    for name, source, timed, replaces, instances in (
+            ("flash_attention_bwd", "flash_attention_bwd_sm90", train, "src/repro/kernels/ref.py:190",
+             (("tc", "bf16", "flash_attention_bwd_sm90"), ("fp32", "fp32", "flash_attention_bwd"))),
+            ("rmsnorm_bwd", "rmsnorm_bwd", train, "src/repro/kernels/ref.py:422", ()),
+            ("ssd_scan_bwd", "ssd_scan_bwd", train_mamba, "src/repro/kernels/ref.py:325",
+             (("bf16", "bf16", "ssd_scan_bwd"), ("fp32", "fp32", "ssd_scan_bwd")))):
+        t = timed["timing"][name]
         kernels.append({
-            "name": entry,
+            "name": source,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",
             "replaces": replaces,
             "launches": sum(run["launches"][name] for run in training),
-            "max_abs_err": max(run["worst"][name] for run in training),
+            "max_abs_err": max(run["worst"].get(name, 0.0) for run in training),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-        if name == "flash_attention_bwd":
+        if instances:
             kernels[-1]["instances"] = [
                 {"instance": inst, "dtype": dt, "source": f"src/repro_torch/csrc/{src}.cu",
                  "launches": sum(run["instances"][name][inst] for run in training)}
-                for inst, dt, src in (("tc", "bf16", "flash_attention_bwd_sm90"),
-                                      ("fp32", "fp32", "flash_attention_bwd"))]
+                for inst, dt, src in instances]
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: never launched on its main path")

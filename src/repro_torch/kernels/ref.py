@@ -17,8 +17,9 @@ computation a kernel wrapper runs for tensors on the CPU:
     ``rmsnorm_bwd_reference``, its autodiff written out, the plain version
     of ``csrc/rmsnorm_bwd.cu``;
   * ``ssd_reference`` — the chunked Mamba-2 SSD scan, kernel 4's plain
-    version (with ``_segsum``), and ``ssd_decode_step``, the one-token
-    recurrence the decode path runs;
+    version (with ``_segsum``), and ``ssd_bwd_reference``, its autodiff
+    written out, the plain version of ``csrc/ssd_scan_bwd.cu``;
+    ``ssd_decode_step``, the one-token recurrence the decode path runs;
   * ``flash_attention_tc_reference``, ``flash_attention_bwd_tc_reference``
     and ``ssd_chunked_reference`` — the arithmetic of the bf16 tensor-core
     instances of kernel 3, its backward and kernel 4, with
@@ -29,8 +30,9 @@ computation a kernel wrapper runs for tensors on the CPU:
 
 The math runs in fp32 for fp32 and bf16 inputs, as the reference's does;
 float64 inputs stay float64 (``_acc``), so that ``torch.autograd.gradcheck``
-can hold the autograd Functions of ``kernels/flash_attention.py`` and
-``kernels/rmsnorm.py`` to finite differences on the host.
+can hold the autograd Functions of ``kernels/flash_attention.py``,
+``kernels/rmsnorm.py`` and ``kernels/ssd_scan.py`` to finite differences on
+the host.
 """
 
 from __future__ import annotations
@@ -473,7 +475,8 @@ def ssd_reference(
     chunk: int = 256,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD (Mamba-2, arXiv:2405.21060 Listing 1), fp32 inside.
+    """Chunked SSD (Mamba-2, arXiv:2405.21060 Listing 1), fp32 inside
+    (float64 inputs stay float64, ``_acc``).
 
     Returns (y: (B, L, H, P) in x's dtype, final_state: (B, H, P, N) fp32).
     The reference's ``lax.scan`` over chunks is a Python loop here."""
@@ -484,8 +487,8 @@ def ssd_reference(
     nc = L // chunk
     rep = H // G
 
-    f32 = torch.float32
-    x_ = x.reshape(Bsz, nc, chunk, H, P).to(f32)
+    x_ = _acc(x.reshape(Bsz, nc, chunk, H, P))
+    f32 = x_.dtype
     dt_ = dt.reshape(Bsz, nc, chunk, H).to(f32)
     B_ = Bm.reshape(Bsz, nc, chunk, G, N).to(f32)
     C_ = Cm.reshape(Bsz, nc, chunk, G, N).to(f32)
@@ -525,6 +528,116 @@ def ssd_reference(
     return y.to(x.dtype), carry
 
 
+def _cumsum_in_order(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """The cumulative sum of ``a`` along ``dim``, each add rounded in order
+    from the first element, as the CUDA kernels' one thread sums it."""
+    out = torch.empty_like(a)
+    run = torch.zeros_like(a.select(dim, 0))
+    for i in range(a.shape[dim]):
+        run = run + a.select(dim, i)
+        out.select(dim, i).copy_(run)
+    return out
+
+
+def ssd_bwd_reference(
+    x: torch.Tensor,    # (B, L, H, P)
+    dt: torch.Tensor,   # (B, L, H)
+    A: torch.Tensor,    # (H,)
+    Bm: torch.Tensor,   # (B, L, G, N)
+    Cm: torch.Tensor,   # (B, L, G, N)
+    dy: torch.Tensor,   # (B, L, H, P) the gradient of y
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    d_final_state: Optional[torch.Tensor] = None,  # (B, H, P, N) the gradient of the final state
+) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``ssd_reference`` for the output gradients ``dy``
+    and ``d_final_state`` (zero when None), its autodiff written out; the
+    plain version of ``csrc/ssd_scan_bwd.cu``.  Per chunk, with ``cs`` the
+    within-chunk cumulative sum of ``dt * A`` (summed in order),
+    ``u = dt * x``, ``S_in`` the state entering the chunk (the forward's
+    scan) and ``R`` the gradient of the state leaving it (``d_final_state``
+    for the last chunk):
+
+      * ``R`` of the chunk before is ``exp(cs_end) R + Σ_i exp(cs_i) dy_i ⊗ C_i``,
+        and ``d_initial_state`` is that of the first chunk;
+      * ``du_j = Σ_{i≥j} (C_i·B_j) exp(cs_i − cs_j) dy_i + exp(cs_end − cs_j) R B_j``;
+      * ``dC_i = Σ_{j≤i} exp(cs_i − cs_j) (dy_i·u_j) B_j + exp(cs_i) dy_i S_in`` and
+        ``dB_j = Σ_{i≥j} exp(cs_i − cs_j) (dy_i·u_j) C_i + exp(cs_end − cs_j) u_j R``,
+        summed over the heads of their group;
+      * the gradient of ``cs`` collects its four exponents' terms, that of
+        ``dt * A`` is its reverse cumulative sum ``ddA``; then
+        ``dx = dt du``, ``d_dt = x·du + A ddA`` and ``dA = Σ dt ddA``.
+
+    fp32 inside (float64 stays float64, ``_acc``).  Returns ``(dx, d_dt,
+    dA, dBm, dCm, d_initial_state)``: dx, dBm and dCm in their inputs'
+    dtypes, the rest fp32 (shapes of x, dt, A, Bm, Cm and the state)."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if chunk <= 0 or L % chunk:
+        raise ValueError(f"ssd: sequence length {L} is not a multiple of chunk {chunk}")
+    nc, rep, c = L // chunk, H // G, chunk
+    x_ = _acc(x.reshape(Bsz, nc, c, H, P))
+    f = x_.dtype
+    dt_ = dt.reshape(Bsz, nc, c, H).to(f)
+    a = A.to(f)
+    B_ = torch.repeat_interleave(Bm.reshape(Bsz, nc, c, G, N).to(f), rep, dim=3)  # (B, nc, c, H, N)
+    C_ = torch.repeat_interleave(Cm.reshape(Bsz, nc, c, G, N).to(f), rep, dim=3)
+    dy_ = dy.reshape(Bsz, nc, c, H, P).to(f)
+
+    cs = _cumsum_in_order(dt_ * a, dim=2)                    # (B, nc, c, H)
+    u = x_ * dt_[..., None]                                  # (B, nc, c, H, P)
+    ecs = torch.exp(cs)
+    wend = torch.exp(cs[:, :, -1:] - cs)                     # exp(cs_end - cs_j)
+    decay = torch.exp(cs[:, :, -1])                          # (B, nc, H)
+
+    # the state entering each chunk, as the forward's scan carries it
+    S = (initial_state.to(f) if initial_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f, device=x.device))
+    s_in = []
+    for z in range(nc):
+        s_in.append(S)
+        S = S * decay[:, z, :, None, None] + torch.einsum("bjhp,bjhn->bhpn", u[:, z] * wend[:, z, ..., None],
+                                                         B_[:, z])
+
+    idx = torch.arange(c, device=x.device)
+    causal = idx[:, None] >= idx[None, :]                    # [i, j]: j <= i
+    R = (d_final_state.to(f) if d_final_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f, device=x.device))
+    du = torch.empty_like(u)
+    dB = torch.empty_like(B_)
+    dC = torch.empty_like(C_)
+    dcs = torch.empty_like(cs)
+    for z in reversed(range(nc)):
+        Si, uz, dyz, Bz, Cz = s_in[z], u[:, z], dy_[:, z], B_[:, z], C_[:, z]
+        csh = cs[:, z].permute(0, 2, 1)                      # (B, H, c)
+        Lm = torch.exp(torch.where(causal, csh[..., :, None] - csh[..., None, :], -math.inf))
+        CB = torch.einsum("bihn,bjhn->bhij", Cz, Bz)
+        Gm = torch.einsum("bihp,bjhp->bhij", dyz, uz)        # dy_i . u_j
+        W1, W2 = CB * Lm, Gm * Lm
+        T = W1 * Gm
+        RB = torch.einsum("bhpn,bjhn->bjhp", R, Bz)          # R B_j
+        uR = torch.einsum("bjhp,bhpn->bjhn", uz, R)          # u_j R
+        dyS = torch.einsum("bihp,bhpn->bihn", dyz, Si)       # dy_i S_in
+        w = wend[:, z, ..., None]
+        du[:, z] = torch.einsum("bhij,bihp->bjhp", W1, dyz) + w * RB
+        dB[:, z] = torch.einsum("bhij,bihn->bjhn", W2, Cz) + w * uR
+        dC[:, z] = torch.einsum("bhij,bjhn->bihn", W2, Bz) + ecs[:, z, ..., None] * dyS
+        wq = wend[:, z] * (uz * RB).sum(-1)                  # (B, c, H)
+        d = (T.sum(-1) - T.sum(-2)).permute(0, 2, 1) + ecs[:, z] * (Cz * dyS).sum(-1) - wq
+        d[:, -1] += decay[:, z] * (R * Si).sum((-1, -2)) + wq.sum(1)
+        dcs[:, z] = d
+        R = R * decay[:, z, :, None, None] + torch.einsum("bih,bihp,bihn->bhpn", ecs[:, z], dyz, Cz)
+
+    ddA = torch.flip(torch.cumsum(torch.flip(dcs, (2,)), dim=2), (2,))
+    dx = (dt_[..., None] * du).reshape(Bsz, L, H, P).to(x.dtype)
+    d_dt = ((x_ * du).sum(-1) + a * ddA).reshape(Bsz, L, H)
+    dA = (dt_ * ddA).sum((0, 1, 2))
+    dBm = dB.reshape(Bsz, nc, c, G, rep, N).sum(4).reshape(Bsz, L, G, N).to(Bm.dtype)
+    dCm = dC.reshape(Bsz, nc, c, G, rep, N).sum(4).reshape(Bsz, L, G, N).to(Cm.dtype)
+    return dx, d_dt, dA, dBm, dCm, R
+
+
 def ssd_chunked_reference(
     x: torch.Tensor,    # (B, L, H, P)
     dt: torch.Tensor,   # (B, L, H)
@@ -554,12 +667,7 @@ def ssd_chunked_reference(
     B_ = Bm.reshape(Bsz, nc, chunk, G, N).to(f32)
     C_ = Cm.reshape(Bsz, nc, chunk, G, N).to(f32)
 
-    dA = dt_ * A.to(f32)
-    cs = torch.empty_like(dA)                                # (B, nc, c, H)
-    run = torch.zeros_like(dA[:, :, 0])
-    for i in range(chunk):
-        run = run + dA[:, :, i]
-        cs[:, :, i] = run
+    cs = _cumsum_in_order(dt_ * A.to(f32), dim=2)           # (B, nc, c, H)
 
     CB = torch.einsum("bzign,bzjgn->bzgij", C_, B_)          # (B, nc, G, c, c)
 

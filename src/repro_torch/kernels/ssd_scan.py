@@ -25,10 +25,16 @@ CPU tensors it runs ``ref.ssd_reference``, the plain PyTorch version.
 ``ssd_scan.launches`` counts calls that launched, ``launches_tc`` and
 ``launches_fp32`` those of each instance.
 
-The kernel has no backward yet: on CUDA tensors with grad mode on and an
-input that requires grad, the wrapper raises ``NotImplementedError``
-(``refuse_grad``) instead of returning an output with no graph.  On CPU
-tensors the plain version is differentiated by autograd.
+Gradients.  When grad mode is on and an input requires grad, the wrapper
+goes through ``SSDScan``, a ``torch.autograd.Function`` whose forward
+launches what the wrapper launches and saves the inputs; its backward is
+``ssd_scan_bwd``, the hand-written ``src/repro_torch/csrc/ssd_scan_bwd.cu``
+(the states entering the chunks and the gradients leaving them scanned
+first, then every chunk's gradients at once, then the per-head partials of
+dB, dC, d_dt and dA summed in a fixed order: deterministic), for fp32 and
+bf16 x, B and C, counted by ``ssd_scan_bwd.launches`` and, by dtype,
+``launches_bf16`` and ``launches_fp32``.  On CPU tensors the Function runs
+the plain forward and ``ref.ssd_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -40,13 +46,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_reference
+from repro_torch.kernels.ref import ssd_bwd_reference, ssd_reference
 
 SOURCE = _build.CudaSource("ssd_scan")          # the fp32 instance
 SOURCE_TC = _build.CudaSource("ssd_scan_sm90")  # the bf16 instance
+SOURCE_BWD = _build.CudaSource("ssd_scan_bwd")  # the backward, fp32 and bf16
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_CHUNKS = (64, 128, 256)
 TC_STATES = (64, 128)
+BWD_MAX_STATE = 128       # the backward keeps two 64-column tiles of N in registers
 MAX_SMEM_BYTES = 232_448  # what one block may use on the H100 (227 KB)
 
 
@@ -64,14 +72,10 @@ def ssd_scan(
     The kernel for CUDA tensors, the plain version for CPU tensors,
     ``ValueError`` for anything else."""
     tensors = [x, dt, A, Bm, Cm] + ([initial_state] if initial_state is not None else [])
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return ssd_reference(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"ssd_scan kernel needs every input on one CUDA device, got "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    refuse_grad(*tensors)
-    return _launch(x, dt, A, Bm, Cm, chunk, initial_state)
+    on_cpu = _build.on_cpu("ssd_scan", *tensors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return SSDScan.apply(x, dt, A, Bm, Cm, initial_state, chunk)
+    return _forward(on_cpu, x, dt, A, Bm, Cm, chunk, initial_state)
 
 
 ssd_scan.launches = 0
@@ -79,16 +83,68 @@ ssd_scan.launches_tc = 0
 ssd_scan.launches_fp32 = 0
 
 
-def refuse_grad(*tensors: torch.Tensor) -> None:
-    """Raise if a gradient is asked of the kernel, which has none yet: a
-    wrong (missing) gradient must not pass for a right one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the ssd_scan kernel has no backward yet (ROADMAP queue 1, item 4: the SSD backward); "
-            "differentiate the ssm and hybrid families on the plain path, attn_impl='reference'")
+def _forward(on_cpu, x, dt, A, Bm, Cm, chunk, initial_state):
+    if on_cpu:
+        return ssd_reference(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+    return _launch(x, dt, A, Bm, Cm, chunk, initial_state)
 
 
-def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with a hand-written backward (``ssd_scan_bwd``); both
+    outputs, y and the final state, are differentiable, and a gradient
+    autograd does not pass (the final state's, where it is unused) is zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk):
+        tensors = [x, dt, A, Bm, Cm] + ([initial_state] if initial_state is not None else [])
+        y, state = _forward(_build.on_cpu("ssd_scan", *tensors), x, dt, A, Bm, Cm, chunk, initial_state)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, d_state):
+        x, dt, A, Bm, Cm, init = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, d_dt, dA, dBm, dCm, d_init = ssd_scan_bwd(
+            x, dt, A, Bm, Cm, dy, chunk=ctx.chunk, initial_state=init, d_final_state=d_state)
+        return (dx, d_dt.to(dt.dtype), dA.to(A.dtype), dBm, dCm,
+                None if init is None else d_init.to(init.dtype), None)
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    dy: torch.Tensor,   # (B, L, H, P) the gradient of y
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,
+    d_final_state: Optional[torch.Tensor] = None,  # (B, H, P, N); None: zero
+) -> Tuple[torch.Tensor, ...]:
+    """``(dx, d_dt, dA, dBm, dCm, d_initial_state)``, the gradients of
+    ``ssd_scan`` (dx, dBm and dCm in their inputs' dtypes, the rest fp32):
+    the backward kernel for CUDA tensors, ``ref.ssd_bwd_reference`` for CPU
+    tensors, ``ValueError`` for anything else (mixed devices, a shape the
+    kernel cannot take)."""
+    tensors = [t for t in (x, dt, A, Bm, Cm, dy, initial_state, d_final_state) if t is not None]
+    if _build.on_cpu("ssd_scan backward", *tensors):
+        return ssd_bwd_reference(x, dt, A, Bm, Cm, dy, chunk=chunk, initial_state=initial_state,
+                                 d_final_state=d_final_state)
+    return _launch_bwd(x, dt, A, Bm, Cm, dy, chunk, initial_state, d_final_state)
+
+
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_bf16 = 0
+ssd_scan_bwd.launches_fp32 = 0
+
+
+def _check_shapes(x, dt, A, Bm, Cm, chunk):
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
@@ -100,6 +156,62 @@ def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
                          f"A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     if chunk <= 0 or L % chunk:
         raise ValueError(f"ssd: sequence length {L} is not a multiple of chunk {chunk}")
+    return Bsz, L, H, P, G, N
+
+
+def _state(t, shape, what):
+    if t is None:
+        return None
+    if t.shape != shape:
+        raise ValueError(f"{what} must be {shape}, got {tuple(t.shape)}")
+    return t.to(torch.float32).contiguous()
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk, initial_state, d_final_state):
+    Bsz, L, H, P, G, N = _check_shapes(x, dt, A, Bm, Cm, chunk)
+    if dy.shape != x.shape:
+        raise ValueError(f"ssd_scan backward: dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    if N > BWD_MAX_STATE:
+        raise ValueError(f"ssd_scan backward kernel takes N up to {BWD_MAX_STATE}, got N={N}")
+    lib = _library_bwd()
+    smem = lib.veer_ssd_scan_bwd_smem_bytes(N, chunk)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"ssd_scan backward kernel: N={N}, chunk={chunk} need {smem} bytes of shared "
+                         f"memory a block, more than {MAX_SMEM_BYTES}")
+    init = _state(initial_state, (Bsz, H, P, N), "initial_state")
+    d_final = _state(d_final_state, (Bsz, H, P, N), "d_final_state")
+    x, Bm, Cm, dy = (t.contiguous() for t in (x, Bm, Cm, dy.to(x.dtype)))
+    dt, A = dt.to(torch.float32).contiguous(), A.to(torch.float32).contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dBm, dCm = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    d_dt, dA = torch.empty((Bsz, L, H), **f32), torch.empty((H,), **f32)
+    d_init = torch.empty((Bsz, H, P, N), **f32)
+    if x.numel() == 0 or N == 0:
+        return (dx.zero_(), d_dt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_(),
+                d_init.zero_() if d_final is None else d_init.copy_(d_final))
+    sizes = (ctypes.c_longlong * 6)()
+    lib.veer_ssd_scan_bwd_scratch(Bsz, L, H, P, N, chunk, sizes)
+    scratch = [torch.empty(n, dtype=torch.uint8, device=x.device) for n in sizes]
+    bf16 = x.dtype == torch.bfloat16
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.veer_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+            init.data_ptr() if init is not None else None,
+            d_final.data_ptr() if d_final is not None else None,
+            dx.data_ptr(), d_dt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_init.data_ptr(),
+            *(t.data_ptr() for t in scratch), int(bf16), Bsz, L, H, P, G, N, chunk, stream)
+    _build.check(lib, rc, "ssd_scan backward kernel")
+    ssd_scan_bwd.launches += 1
+    if bf16:
+        ssd_scan_bwd.launches_bf16 += 1
+    else:
+        ssd_scan_bwd.launches_fp32 += 1
+    return dx, d_dt, dA, dBm, dCm, d_init
+
+
+def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
+    Bsz, L, H, P, G, N = _check_shapes(x, dt, A, Bm, Cm, chunk)
     tc = x.dtype == torch.bfloat16
     if tc and (chunk not in TC_CHUNKS or P % 64 or N not in TC_STATES):
         raise ValueError(f"ssd_scan bf16 kernel takes chunk in {TC_CHUNKS}, P a multiple of 64 "
@@ -117,11 +229,7 @@ def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
                      for t in (x, Bm, Cm))
     else:
         x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
-    init = None
-    if initial_state is not None:
-        if initial_state.shape != (Bsz, H, P, N):
-            raise ValueError(f"initial_state must be {(Bsz, H, P, N)}, got {tuple(initial_state.shape)}")
-        init = initial_state.to(torch.float32).contiguous()
+    init = _state(initial_state, (Bsz, H, P, N), "initial_state")
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
@@ -178,4 +286,16 @@ def _library_tc() -> ctypes.CDLL:
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     lib.veer_ssd_scan_tc.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_bwd() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_BWD)
+    lib.veer_ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.veer_ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.veer_ssd_scan_bwd_scratch.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.veer_ssd_scan_bwd_scratch.restype = None
+    lib.veer_ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.veer_ssd_scan_bwd.restype = ctypes.c_int
     return lib

@@ -12,8 +12,8 @@
 ``attn_impl`` ("auto" | "cuda" | "reference", ``kernels/ops.py``) selects
 the flash attention, SSD scan and RMSNorm implementation.  It defaults to
 "auto": the hand-written kernels on CUDA tensors, whose autograd Functions
-run the hand-written backward kernels of flash attention and RMSNorm (the
-SSD kernel has no backward yet and raises under grad).  The reference
+run the hand-written backward kernels of flash attention, RMSNorm and the
+SSD scan.  The reference
 defaults to its plain path; "reference" names the port's plain path.
 ``loss`` is differentiable; ``remat`` (default True, as the reference)
 checkpoints each period of the stack.  ``forward``, ``forward_step`` and

@@ -31,7 +31,6 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as RMS
-from repro_torch.kernels import ssd_scan as SS
 from repro_torch.models import build_model
 from repro_torch.models.layers import tree_leaves
 
@@ -143,17 +142,6 @@ def test_forward_step_builds_no_graph_and_loss_does():
     assert model.loss(params, batch).requires_grad
     with torch.no_grad():
         assert not model.loss(params, batch).requires_grad
-
-
-def test_ssd_kernel_refuses_grad():
-    """The SSD kernel has no backward: asked for a gradient it raises,
-    naming the plain path, instead of returning an output with no graph."""
-    x = torch.ones(1, 16, 2, 8, requires_grad=True)
-    SS.refuse_grad(torch.ones(2))  # no gradient asked: nothing to refuse
-    with torch.no_grad():
-        SS.refuse_grad(x)
-    with pytest.raises(NotImplementedError, match="attn_impl='reference'"):
-        SS.refuse_grad(torch.ones(2), x)
 
 
 def test_backward_wrappers_refuse_mixed_devices():
