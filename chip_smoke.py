@@ -9,13 +9,13 @@ Phases (any failure exits non-zero and prints no result):
 
   1. device      CUDA must be available; prints the card's name and power
                  limit as ``nvidia-smi`` gives them.
-  2. build       compiles the ten kernel sources of ``src/repro_torch/csrc/``
+  2. build       compiles the eleven kernel sources of ``src/repro_torch/csrc/``
                  (relational, rmsnorm, flash_attention and ssd_scan for fp32,
                  flash_attention_sm90 and ssd_scan_sm90 for bf16 on the
                  tensor cores, and the backward kernels: flash_attention_bwd
-                 for fp32, flash_attention_bwd_sm90 for bf16 on the tensor
-                 cores, rmsnorm_bwd, ssd_scan_bwd), one nvcc each, all
-                 started together.
+                 and ssd_scan_bwd for fp32, flash_attention_bwd_sm90 and
+                 ssd_scan_bwd_sm90 for bf16 on the tensor cores,
+                 rmsnorm_bwd), one nvcc each, all started together.
   3. kernel      the relational kernel against its plain PyTorch version on
                  the card and against the numpy reference, on adversarial
                  inputs (uniform +-1e6, int64, NaN, +-0, +-inf, values on the
@@ -239,10 +239,11 @@ Phases (any failure exits non-zero and prints no result):
                  depth (64 layers, d 2560, 80 heads of 64, state 128, chunk
                  256, vocab 50,280; ~2.70e9 parameters), on 2 x 4096 tokens
                  in its 2 microbatches: gated as (a) (per step 256 SSD
-                 forward launches and 128 SSD backward, all bf16, the SSD
-                 forward on the tensor cores), the control the plain path
+                 forward launches and 128 SSD backward, all on the tensor
+                 cores), the control the plain path
                  with SSD chunks of 128; the SSD backward kernel held to its
-                 plain version on layer 0's own tensors (dA against the
+                 plain version on layer 0's own tensors, bf16 on the tensor
+                 cores and fp32 on the CUDA cores (dA against the
                  plain version in float64, within the larger of
                  BWD_FP32_TOL and 2x the fp32 plain version's distance
                  from it: ``_check_ssd_bwd``); TRAIN_STEPS AdamW steps
@@ -257,7 +258,7 @@ Phases (any failure exits non-zero and prints no result):
                  relational kernel's over phases 4, 7, 7b's service and
                  7c's manager, the backward kernels' over 15a-e; relational,
                  flash attention, its backward and the SSD scan also by
-                 instance, the SSD backward by dtype), the card's name and
+                 instance, and the SSD backward), the card's name and
                  power limit, then the result line.
 
 Options: ``--seed N`` (default 0) seeds the serving and training phases'
@@ -335,7 +336,8 @@ def _reset_counts():
         R.relational.launches_by_instance[route] = 0
     for w in (FA.flash_attention, FA.flash_attention_bwd, SS.ssd_scan):
         w.launches = w.launches_tc = w.launches_fp32 = 0
-    SS.ssd_scan_bwd.launches = SS.ssd_scan_bwd.launches_bf16 = SS.ssd_scan_bwd.launches_fp32 = 0
+    for name in SSD_BWD_COUNTS:
+        setattr(SS.ssd_scan_bwd, name, 0)
 
 
 def _counts():
@@ -347,10 +349,12 @@ def _counts():
 
 
 # the instance each kernel with two runs on the bf16 main path: ``tc`` on the
-# tensor cores (the other, ``fp32``, on the CUDA cores); the SSD backward's
-# two are one source on the CUDA cores, by input dtype
+# tensor cores (the other, ``fp32``, on the CUDA cores)
 MAIN_INSTANCE = {"flash_attention": "tc", "flash_attention_bwd": "tc", "ssd_scan": "tc",
-                 "ssd_scan_bwd": "bf16"}
+                 "ssd_scan_bwd": "tc"}
+# the SSD backward's counters: every launch, by dtype, and the bf16 ones on
+# the tensor cores
+SSD_BWD_COUNTS = ("launches", "launches_bf16", "launches_fp32", "launches_tc")
 
 
 def _instance_counts():
@@ -381,7 +385,7 @@ def phase_build():
     R, RMS, FA, SS = _kernel_modules()
     t0 = time.perf_counter()
     infos = _build.build(R.SOURCE, RMS.SOURCE, FA.SOURCE, FA.SOURCE_TC, SS.SOURCE, SS.SOURCE_TC,
-                         FA.SOURCE_BWD, FA.SOURCE_BWD_TC, RMS.SOURCE_BWD, SS.SOURCE_BWD)
+                         FA.SOURCE_BWD, FA.SOURCE_BWD_TC, RMS.SOURCE_BWD, SS.SOURCE_BWD, SS.SOURCE_BWD_TC)
     wall = time.perf_counter() - t0
     for name, info in infos.items():
         log(f"build: {name}.cu in {info['seconds']:.2f} s (cached={info['cached']})")
@@ -390,7 +394,7 @@ def phase_build():
                 log(f"  ptxas: {line.strip()}")
     # load each and check the relational plan layout against the source
     R._library(), RMS._library(), FA._library(), FA._library_tc(), SS._library(), SS._library_tc()
-    FA._library_bwd(), FA._library_bwd_tc(), RMS._library_bwd(), SS._library_bwd()
+    FA._library_bwd(), FA._library_bwd_tc(), RMS._library_bwd(), SS._library_bwd(), SS._library_bwd_tc()
     log(f"build: all kernels in {wall:.2f} s of wall time")
     return {"seconds": wall}
 
@@ -3133,7 +3137,8 @@ class _last_bwd_inputs:
         # a wrapper launches through the original, which counts on the
         # module's name for itself, the stand-in while recording
         fa.launches = fa.launches_tc = fa.launches_fp32 = rms.launches = 0
-        ssd.launches = ssd.launches_bf16 = ssd.launches_fp32 = 0
+        for name in SSD_BWD_COUNTS:
+            setattr(ssd, name, 0)
         FA.flash_attention_bwd, RMS.rmsnorm_bwd, SS.ssd_scan_bwd = self.stand_ins = fa, rms, ssd
         return self
 
@@ -3141,7 +3146,7 @@ class _last_bwd_inputs:
         for name in ("launches", "launches_tc", "launches_fp32"):
             setattr(self.fa, name, getattr(self.fa, name) + getattr(self.stand_ins[0], name))
         self.rms.launches += self.stand_ins[1].launches
-        for name in ("launches", "launches_bf16", "launches_fp32"):
+        for name in SSD_BWD_COUNTS:
             setattr(self.ssd, name, getattr(self.ssd, name) + getattr(self.stand_ins[2], name))
         self.FA.flash_attention_bwd, self.RMS.rmsnorm_bwd, self.SS.ssd_scan_bwd = self.fa, self.rms, self.ssd
 
@@ -3214,9 +3219,13 @@ def _check_ssd_bwd(tag, scan):
     worst = 0.0
     for name, args in (("bf16", (x, dt, A, Bm, Cm, dy)),
                        ("fp32", (x.float(), dt, A, Bm.float(), Cm.float(), dy.float()))):
+        before = (SS.ssd_scan_bwd.launches_tc, SS.ssd_scan_bwd.launches_fp32)
         got = SS.ssd_scan_bwd(*args, **kw)
         want = ref.ssd_bwd_reference(*args, **kw)
         torch.cuda.synchronize()
+        on = (SS.ssd_scan_bwd.launches_tc - before[0], SS.ssd_scan_bwd.launches_fp32 - before[1])
+        if on != ((1, 0) if name == "bf16" else (0, 1)):
+            fail(f"{tag}: the {name} SSD backward ran on the wrong instance (tensor cores, fp32: {on})")
         for what, a, b in zip(SSD_GRADS, got, want):
             err, ok = _bwd_gap(a, b)
             note = ""
@@ -3373,7 +3382,7 @@ def _check_step_launches(tag, cfg, counts, inst, steps=1, microbatches=1):
         fail(f"{tag}: {steps} training step(s) launched {counts}, expected {want}")
     if not _on_main_instance(want, inst):
         fail(f"{tag}: the training step's launches by instance {inst}: not all on the tensor-core "
-             f"instance (the SSD backward's: bf16)")
+             f"instance")
 
 
 def _train_cell(tag, cfg, seed, batch_fn, control, steps, time_kernels=False, microbatches=1):
@@ -3614,11 +3623,12 @@ def _ssd_bwd_flops(x, Bm, chunk):
 
 def _time_ssd_bwd(tag, seed):
     """The SSD backward kernel at row 4's shape (``SSD_MAIN`` in bf16, the
-    mamba2-2.7b prefill) on seeded inputs, beside its plain version and its
-    bound: the bytes read and written once, or ``_ssd_bwd_flops`` over the
-    card's peak rate for the inputs' type (bf16: the tensor cores', as
-    ``_ssd_bound_ms`` takes it for the forward), whatever the kernel runs
-    them on.  No PyTorch call computes it (library: none)."""
+    mamba2-2.7b prefill: the tensor-core instance) on seeded inputs, beside
+    its plain version and its bound: the bytes read and written once, or
+    ``_ssd_bwd_flops`` over the card's peak rate for the inputs' type (bf16:
+    the tensor cores', as ``_ssd_bound_ms`` takes it for the forward),
+    whatever the kernel runs them on.  No PyTorch call computes it
+    (library: none)."""
     import torch
     import torch.nn.functional as F
 
@@ -3643,7 +3653,32 @@ def _time_ssd_bwd(tag, seed):
         f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}; {flops} "
         f"operations at the bf16 tensor-core rate, {nbytes} bytes); kernel at "
         f"{flops / t['ms'] / 1e9:.2f} TFLOP/s, {100 * bound / t['ms']:.2f}% of the bound")
+    _log_ssd_bwd_split(tag, lambda: SS.ssd_scan_bwd(*args, chunk=chunk))
     return t
+
+
+def _log_ssd_bwd_split(tag, call, calls: int = 10):
+    """Logs each kernel's device ms a call over ``calls`` profiled calls,
+    with the launches the profiler saw: a window can lose its first
+    launches (9 of 10 seen on the card), so a kernel's ms a call is its
+    mean launch times its launches a call, not its total over ``calls``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    split = sorted(((ev.device_time_total / 1e3 / ev.count * max(1, round(ev.count / calls)), ev.count,
+                     ev.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0])
+                    for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.device_time_total),
+                   reverse=True)
+    what = "; ".join(f"{name[:80]} {ms:.4f} ({n})" for ms, n, name in split) or \
+        "not measured (the profiler saw no device activity)"
+    log(f"{tag}: ssd_scan backward's kernels, device ms a call over {calls} profiled calls "
+        f"(launches seen): {what}")
 
 
 def phase_train_mamba(seed: int):
@@ -3804,14 +3839,14 @@ def main() -> int:
                 for inst, dt, suffix in (("tc", "bf16", "_sm90"), ("fp32", "fp32", ""))]
     # the backward kernels: launches on phase 15's training steps, times on
     # 15a's layer-0 tensors (the prefill shape of the forward's row), the SSD
-    # backward's at row 4's shape in 15d; the flash backward's entry is its
-    # bf16 tensor-core instance, the one training runs
+    # backward's at row 4's shape in 15d; the flash and SSD backward's
+    # entries are their bf16 tensor-core instances, the ones training runs
     for name, source, timed, replaces, instances in (
             ("flash_attention_bwd", "flash_attention_bwd_sm90", train, "src/repro/kernels/ref.py:190",
              (("tc", "bf16", "flash_attention_bwd_sm90"), ("fp32", "fp32", "flash_attention_bwd"))),
             ("rmsnorm_bwd", "rmsnorm_bwd", train, "src/repro/kernels/ref.py:422", ()),
-            ("ssd_scan_bwd", "ssd_scan_bwd", train_mamba, "src/repro/kernels/ref.py:325",
-             (("bf16", "bf16", "ssd_scan_bwd"), ("fp32", "fp32", "ssd_scan_bwd")))):
+            ("ssd_scan_bwd", "ssd_scan_bwd_sm90", train_mamba, "src/repro/kernels/ref.py:325",
+             (("tc", "bf16", "ssd_scan_bwd_sm90"), ("fp32", "fp32", "ssd_scan_bwd")))):
         t = timed["timing"][name]
         kernels.append({
             "name": source,

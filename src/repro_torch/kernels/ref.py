@@ -20,9 +20,10 @@ computation a kernel wrapper runs for tensors on the CPU:
     version (with ``_segsum``), and ``ssd_bwd_reference``, its autodiff
     written out, the plain version of ``csrc/ssd_scan_bwd.cu``;
     ``ssd_decode_step``, the one-token recurrence the decode path runs;
-  * ``flash_attention_tc_reference``, ``flash_attention_bwd_tc_reference``
-    and ``ssd_chunked_reference`` — the arithmetic of the bf16 tensor-core
-    instances of kernel 3, its backward and kernel 4, with
+  * ``flash_attention_tc_reference``, ``flash_attention_bwd_tc_reference``,
+    ``ssd_chunked_reference`` and ``ssd_bwd_tc_reference`` — the arithmetic
+    of the bf16 tensor-core instances of kernel 3, its backward, kernel 4
+    and its backward, with
     their operands split into bf16 hi + lo where the kernels split them, so
     that a test can hold each kernel to it tightly and hold it to the plain
     versions above at their tolerances.  Tests and
@@ -285,6 +286,13 @@ def _split_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     it as, ``hi = bf16(a)`` and ``lo = bf16(a - hi)``, each back in fp32."""
     hi = a.to(torch.bfloat16).to(torch.float32)
     return hi, (a - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _split_bf16_3(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 ``a`` as three bf16 operands ``hi + mid + lo`` (24 bits of it),
+    each back in fp32."""
+    hi, mid = _split_bf16(a)
+    return hi, mid, (a - hi - mid).to(torch.bfloat16).to(torch.float32)
 
 
 def flash_attention_tc_reference(
@@ -636,6 +644,153 @@ def ssd_bwd_reference(
     dBm = dB.reshape(Bsz, nc, c, G, rep, N).sum(4).reshape(Bsz, L, G, N).to(Bm.dtype)
     dCm = dC.reshape(Bsz, nc, c, G, rep, N).sum(4).reshape(Bsz, L, G, N).to(Cm.dtype)
     return dx, d_dt, dA, dBm, dCm, R
+
+
+TC_BWD_MAX_RUN = 8  # heads of a group whose dB and dC one block of ssd_scan_bwd_sm90.cu sums
+
+
+def ssd_bwd_head_run(rep: int) -> int:
+    """Heads a block of the bf16 SSD backward walks in order, summing their
+    dB and dC before it writes a partial: the largest divisor of the heads
+    per group ``rep`` up to ``TC_BWD_MAX_RUN``."""
+    return max(d for d in range(1, min(rep, TC_BWD_MAX_RUN) + 1) if rep % d == 0)
+
+
+def ssd_bwd_tc_reference(
+    x: torch.Tensor,    # (B, L, H, P)
+    dt: torch.Tensor,   # (B, L, H)
+    A: torch.Tensor,    # (H,)
+    Bm: torch.Tensor,   # (B, L, G, N)
+    Cm: torch.Tensor,   # (B, L, G, N)
+    dy: torch.Tensor,   # (B, L, H, P) the gradient of y
+    *,
+    chunk: int = 256,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    d_final_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, ...]:
+    """The arithmetic of the bf16 SSD backward on the tensor cores
+    (``csrc/ssd_scan_bwd_sm90.cu``), the math of ``ssd_bwd_reference``:
+
+      * cs in order in fp32 and ``CB = C Bᵀ`` once per group, as the
+        forward's kernels 1 and 2 compute them;
+      * every chunk's own forward state ``Σ_j a_j ⊗ B_j`` (``a_j = x_j ·
+        exp(cs_end − cs_j) · dt_j``) and own reverse state ``Σ_i e_i ⊗ C_i``
+        (``e_i = dy_i · exp(cs_i)``), all chunks at once, a_j split into
+        bf16 hi + lo (``_split_bf16``) and e_i into hi + mid + lo
+        (``_split_bf16_3``: their sum over every chunk is the initial
+        state's gradient, held to 1e-5 of its largest element);
+      * one pass over the chunks carrying S_in forward and R back in fp32;
+        ``Σ R · S_in`` of each chunk in double;
+      * per chunk and head, with ``M = exp(cs_i − cs_j)`` on the causal
+        half: ``DX = dy xᵀ`` (bf16 operands, no split), ``Gm = DX · dt_j``,
+        ``W1 = CB · M``, ``W2 = Gm · M``, ``T = W1 · Gm``; W1, W2, R and
+        S_in split for their products; du, dB and dC as
+        ``ssd_bwd_reference`` writes them, with ``u R`` as
+        ``(exp(cs_end − cs_j) dt_j) (x R)``;
+      * dB and dC summed in fp32 over runs of ``ssd_bwd_head_run`` heads in
+        order, the runs in double; T's row and column sums, dcs, its
+        reverse cumulative sum ddA and dA in double, rounded to fp32 once.
+
+    Returns ``(dx, d_dt, dA, dBm, dCm, d_initial_state)`` as
+    ``ssd_bwd_reference`` does."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if chunk <= 0 or L % chunk:
+        raise ValueError(f"ssd: sequence length {L} is not a multiple of chunk {chunk}")
+    nc, rep, c = L // chunk, H // G, chunk
+    run = ssd_bwd_head_run(rep)
+    f32, f64 = torch.float32, torch.float64
+    dev = x.device
+    x_ = x.reshape(Bsz, nc, c, H, P).to(f32)
+    dy_ = dy.reshape(Bsz, nc, c, H, P).to(f32)
+    dt_ = dt.reshape(Bsz, nc, c, H).to(f32)
+    a = A.to(f32)
+    B_ = Bm.reshape(Bsz, nc, c, G, N).to(f32)
+    C_ = Cm.reshape(Bsz, nc, c, G, N).to(f32)
+
+    cs = _cumsum_in_order(dt_ * a, dim=2)                    # (B, nc, c, H)
+    ecs = torch.exp(cs)
+    wend = torch.exp(cs[:, :, -1:] - cs)
+    decay = torch.exp(cs[:, :, -1])                          # (B, nc, H)
+
+    def heads(t):                                            # (B, c, G, N) -> (B, c, H, N)
+        return torch.repeat_interleave(t, rep, dim=2)
+
+    def outer(parts, rows):                                  # Σ_j w_j ⊗ rows_j, w given in parts
+        return sum(torch.einsum("bjhp,bjhn->bhpn", part, rows) for part in parts)
+
+    # every chunk's own states, then one pass carrying S_in and R
+    own_f = [outer(_split_bf16(x_[:, z] * (wend[:, z] * dt_[:, z])[..., None]), heads(B_[:, z]))
+             for z in range(nc)]
+    own_r = [outer(_split_bf16_3(dy_[:, z] * ecs[:, z, ..., None]), heads(C_[:, z])) for z in range(nc)]
+    S = (initial_state.to(f32) if initial_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f32, device=dev))
+    s_in = []
+    for z in range(nc):
+        s_in.append(S)
+        S = S * decay[:, z, :, None, None] + own_f[z]
+    R = (d_final_state.to(f32) if d_final_state is not None
+         else torch.zeros((Bsz, H, P, N), dtype=f32, device=dev))
+    r_out = [None] * nc
+    for z in reversed(range(nc)):
+        r_out[z] = R
+        R = R * decay[:, z, :, None, None] + own_r[z]
+    d_init = R
+
+    idx = torch.arange(c, device=dev)
+    causal = idx[:, None] >= idx[None, :]                    # [i, j]: j <= i
+    du = torch.empty_like(x_)
+    dB = torch.zeros((Bsz, nc, c, G, N), dtype=f64, device=dev)
+    dC = torch.zeros_like(dB)
+    dcs = torch.empty((Bsz, nc, c, H), dtype=f64, device=dev)
+    for z in range(nc):
+        Si, Rz = s_in[z], r_out[z]
+        xz, dyz, dtz = x_[:, z], dy_[:, z], dt_[:, z]
+        Bz, Cz = B_[:, z], C_[:, z]
+        CB = torch.einsum("bign,bjgn->bgij", Cz, Bz)
+        CBh = torch.repeat_interleave(CB, rep, dim=1)        # (B, H, c, c)
+        csh = cs[:, z].permute(0, 2, 1)                      # (B, H, c)
+        Mz = torch.exp(torch.where(causal, csh[..., :, None] - csh[..., None, :], -math.inf))
+        Gm = torch.einsum("bihp,bjhp->bhij", dyz, xz) * dtz.permute(0, 2, 1)[:, :, None, :]
+        W1, W2 = CBh * Mz, Gm * Mz
+        T = (W1 * Gm).to(f64)
+        W1h, W1l = _split_bf16(W1)
+        W2h, W2l = _split_bf16(W2)
+        Rh, Rl = _split_bf16(Rz)
+        Sh, Sl = _split_bf16(Si)
+        Bh, Ch = heads(Bz), heads(Cz)
+        br = torch.einsum("bjhn,bhpn->bjhp", Bh, Rh) + torch.einsum("bjhn,bhpn->bjhp", Bh, Rl)
+        xR = torch.einsum("bjhp,bhpn->bjhn", xz, Rh) + torch.einsum("bjhp,bhpn->bjhn", xz, Rl)
+        ys = torch.einsum("bihp,bhpn->bihn", dyz, Sh) + torch.einsum("bihp,bhpn->bihn", dyz, Sl)
+        w = wend[:, z, ..., None]
+        duz = (w * br + torch.einsum("bhij,bihp->bjhp", W1h, dyz)
+               + torch.einsum("bhij,bihp->bjhp", W1l, dyz))
+        dBh = ((w * dtz[..., None]) * xR + torch.einsum("bhij,bihn->bjhn", W2h, Ch)
+               + torch.einsum("bhij,bihn->bjhn", W2l, Ch))
+        dCh = (ecs[:, z, ..., None] * ys + torch.einsum("bhij,bjhn->bihn", W2h, Bh)
+               + torch.einsum("bhij,bjhn->bihn", W2l, Bh))
+        du[:, z] = duz
+        for part, acc in ((dBh, dB), (dCh, dC)):             # fp32 in runs of heads, the runs in double
+            runs = part.reshape(Bsz, c, G, rep // run, run, N)
+            total = torch.zeros_like(runs[:, :, :, :, 0])
+            for r in range(run):
+                total = total + runs[:, :, :, :, r]
+            acc[:, z] = total.to(f64).sum(3)
+        off = ecs[:, z] * (Ch * ys).sum(-1)                  # (B, c, H)
+        wq = (wend[:, z] * dtz) * (xz * br).sum(-1)
+        rs = (Rz.to(f64) * Si.to(f64)).sum((-1, -2))         # (B, H)
+        d = (T.sum(-1) - T.sum(-2)).permute(0, 2, 1) + off.to(f64) - wq.to(f64)
+        d[:, -1] += decay[:, z].to(f64) * rs + wq.to(f64).sum(1)
+        dcs[:, z] = d
+
+    ddA = torch.flip(torch.cumsum(torch.flip(dcs, (2,)), dim=2), (2,))
+    dx = (dt_[..., None] * du).reshape(Bsz, L, H, P).to(x.dtype)
+    xdu = (x_ * du).sum(-1)
+    d_dt = (xdu.to(f64) + a.to(f64) * ddA).to(f32).reshape(Bsz, L, H)
+    dA = (dt_.to(f64) * ddA).sum((0, 1, 2)).to(f32)
+    dBm = dB.to(f32).reshape(Bsz, L, G, N).to(Bm.dtype)
+    dCm = dC.to(f32).reshape(Bsz, L, G, N).to(Cm.dtype)
+    return dx, d_dt, dA, dBm, dCm, d_init
 
 
 def ssd_chunked_reference(

@@ -28,13 +28,26 @@ CPU tensors it runs ``ref.ssd_reference``, the plain PyTorch version.
 Gradients.  When grad mode is on and an input requires grad, the wrapper
 goes through ``SSDScan``, a ``torch.autograd.Function`` whose forward
 launches what the wrapper launches and saves the inputs; its backward is
-``ssd_scan_bwd``, the hand-written ``src/repro_torch/csrc/ssd_scan_bwd.cu``
-(the states entering the chunks and the gradients leaving them scanned
-first, then every chunk's gradients at once, then the per-head partials of
-dB, dC, d_dt and dA summed in a fixed order: deterministic), for fp32 and
-bf16 x, B and C, counted by ``ssd_scan_bwd.launches`` and, by dtype,
-``launches_bf16`` and ``launches_fp32``.  On CPU tensors the Function runs
-the plain forward and ``ref.ssd_bwd_reference``.
+``ssd_scan_bwd``, deterministic (no atomics, every sum in a fixed order)
+with two hand-written instances:
+
+  * bf16 x, B and C at the tensor-core shapes (chunk in ``TC_CHUNKS``, P in
+    ``TC_BWD_HEAD_DIMS``, N in ``TC_STATES``):
+    ``src/repro_torch/csrc/ssd_scan_bwd_sm90.cu``, the chunk-parallel form on
+    ``wgmma`` (the forward's cumulative sums, C·Bᵀ once per group and the
+    chunks' own states, then their own reverse states, one pass over the
+    chunks for S_in and R, every chunk's column and row tiles, the ordered
+    sums).  Its arithmetic is ``ref.ssd_bwd_tc_reference``.  Counted by
+    ``ssd_scan_bwd.launches_tc``.
+  * fp32, and bf16 at any other shape: ``src/repro_torch/csrc/ssd_scan_bwd.cu``
+    on the CUDA cores (the states entering the chunks and the gradients
+    leaving them scanned first, then every chunk's gradients at once, then
+    the per-head partials summed in order).
+
+``ssd_scan_bwd.launches`` counts every launch, ``launches_bf16`` and
+``launches_fp32`` those of each dtype; ``launches_bf16 - launches_tc`` are
+the bf16 calls the shape rule sends to the CUDA cores.  On CPU tensors the Function runs the
+plain forward and ``ref.ssd_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -50,11 +63,13 @@ from repro_torch.kernels.ref import ssd_bwd_reference, ssd_reference
 
 SOURCE = _build.CudaSource("ssd_scan")          # the fp32 instance
 SOURCE_TC = _build.CudaSource("ssd_scan_sm90")  # the bf16 instance
-SOURCE_BWD = _build.CudaSource("ssd_scan_bwd")  # the backward, fp32 and bf16
+SOURCE_BWD = _build.CudaSource("ssd_scan_bwd")  # the backward on the CUDA cores, fp32 and bf16
+SOURCE_BWD_TC = _build.CudaSource("ssd_scan_bwd_sm90")  # the bf16 backward on the tensor cores
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_CHUNKS = (64, 128, 256)
 TC_STATES = (64, 128)
-BWD_MAX_STATE = 128       # the backward keeps two 64-column tiles of N in registers
+TC_BWD_HEAD_DIMS = (64,)  # P of the tensor-core backward
+BWD_MAX_STATE = 128       # the CUDA-core backward keeps two 64-column tiles of N in registers
 MAX_SMEM_BYTES = 232_448  # what one block may use on the H100 (227 KB)
 
 
@@ -142,6 +157,14 @@ def ssd_scan_bwd(
 ssd_scan_bwd.launches = 0
 ssd_scan_bwd.launches_bf16 = 0
 ssd_scan_bwd.launches_fp32 = 0
+ssd_scan_bwd.launches_tc = 0
+
+
+def bwd_on_tensor_cores(dtype: torch.dtype, P: int, N: int, chunk: int) -> bool:
+    """The shape rule of the backward: bf16 at chunk in ``TC_CHUNKS``, P in
+    ``TC_BWD_HEAD_DIMS`` and N in ``TC_STATES`` runs on the tensor cores;
+    any other bf16 shape, and fp32, on the CUDA cores."""
+    return dtype == torch.bfloat16 and chunk in TC_CHUNKS and P in TC_BWD_HEAD_DIMS and N in TC_STATES
 
 
 def _check_shapes(x, dt, A, Bm, Cm, chunk):
@@ -171,16 +194,17 @@ def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk, initial_state, d_final_state):
     Bsz, L, H, P, G, N = _check_shapes(x, dt, A, Bm, Cm, chunk)
     if dy.shape != x.shape:
         raise ValueError(f"ssd_scan backward: dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
-    if N > BWD_MAX_STATE:
-        raise ValueError(f"ssd_scan backward kernel takes N up to {BWD_MAX_STATE}, got N={N}")
-    lib = _library_bwd()
-    smem = lib.veer_ssd_scan_bwd_smem_bytes(N, chunk)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"ssd_scan backward kernel: N={N}, chunk={chunk} need {smem} bytes of shared "
-                         f"memory a block, more than {MAX_SMEM_BYTES}")
+    tc = bwd_on_tensor_cores(x.dtype, P, N, chunk)
+    if not tc:
+        if N > BWD_MAX_STATE:
+            raise ValueError(f"ssd_scan backward kernel takes N up to {BWD_MAX_STATE}, got N={N}")
+        smem = _library_bwd().veer_ssd_scan_bwd_smem_bytes(N, chunk)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"ssd_scan backward kernel: N={N}, chunk={chunk} need {smem} bytes of shared "
+                             f"memory a block, more than {MAX_SMEM_BYTES}")
     init = _state(initial_state, (Bsz, H, P, N), "initial_state")
     d_final = _state(d_final_state, (Bsz, H, P, N), "d_final_state")
-    x, Bm, Cm, dy = (t.contiguous() for t in (x, Bm, Cm, dy.to(x.dtype)))
+    x, Bm, Cm, dy = (_contiguous(t) for t in (x, Bm, Cm, dy.to(x.dtype)))
     dt, A = dt.to(torch.float32).contiguous(), A.to(torch.float32).contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, dBm, dCm = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
@@ -189,25 +213,39 @@ def _launch_bwd(x, dt, A, Bm, Cm, dy, chunk, initial_state, d_final_state):
     if x.numel() == 0 or N == 0:
         return (dx.zero_(), d_dt.zero_(), dA.zero_(), dBm.zero_(), dCm.zero_(),
                 d_init.zero_() if d_final is None else d_init.copy_(d_final))
-    sizes = (ctypes.c_longlong * 6)()
-    lib.veer_ssd_scan_bwd_scratch(Bsz, L, H, P, N, chunk, sizes)
-    scratch = [torch.empty(n, dtype=torch.uint8, device=x.device) for n in sizes]
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+            init.data_ptr() if init is not None else None,
+            d_final.data_ptr() if d_final is not None else None,
+            dx.data_ptr(), d_dt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_init.data_ptr())
     bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.veer_ssd_scan_bwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
-            init.data_ptr() if init is not None else None,
-            d_final.data_ptr() if d_final is not None else None,
-            dx.data_ptr(), d_dt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), d_init.data_ptr(),
-            *(t.data_ptr() for t in scratch), int(bf16), Bsz, L, H, P, G, N, chunk, stream)
+        if tc:
+            lib = _library_bwd_tc()
+            scratch = torch.empty(lib.veer_ssd_scan_bwd_tc_scratch(Bsz, L, H, P, G, N, chunk), dtype=torch.uint8,
+                                  device=x.device)
+            rc = lib.veer_ssd_scan_bwd_tc(*ptrs, scratch.data_ptr(), Bsz, L, H, P, G, N, chunk, stream)
+        else:
+            lib = _library_bwd()
+            sizes = (ctypes.c_longlong * 6)()
+            lib.veer_ssd_scan_bwd_scratch(Bsz, L, H, P, N, chunk, sizes)
+            scratch = [torch.empty(n, dtype=torch.uint8, device=x.device) for n in sizes]
+            rc = lib.veer_ssd_scan_bwd(*ptrs, *(t.data_ptr() for t in scratch), int(bf16), Bsz, L, H, P, G, N,
+                                       chunk, stream)
     _build.check(lib, rc, "ssd_scan backward kernel")
     ssd_scan_bwd.launches += 1
     if bf16:
         ssd_scan_bwd.launches_bf16 += 1
+        ssd_scan_bwd.launches_tc += int(tc)
     else:
         ssd_scan_bwd.launches_fp32 += 1
     return dx, d_dt, dA, dBm, dCm, d_init
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base (the tensor-core
+    backward's asynchronous copies read 16 bytes at a time)."""
+    return t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(x, dt, A, Bm, Cm, chunk, initial_state):
@@ -298,4 +336,16 @@ def _library_bwd() -> ctypes.CDLL:
     lib.veer_ssd_scan_bwd_scratch.restype = None
     lib.veer_ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.veer_ssd_scan_bwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_bwd_tc() -> ctypes.CDLL:
+    lib = _build.load(SOURCE_BWD_TC)
+    lib.veer_ssd_scan_bwd_tc_scratch.argtypes = [ctypes.c_int] * 7
+    lib.veer_ssd_scan_bwd_tc_scratch.restype = ctypes.c_longlong
+    lib.veer_ssd_scan_bwd_tc_head_run.argtypes = [ctypes.c_int]
+    lib.veer_ssd_scan_bwd_tc_head_run.restype = ctypes.c_int
+    lib.veer_ssd_scan_bwd_tc.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.veer_ssd_scan_bwd_tc.restype = ctypes.c_int
     return lib
