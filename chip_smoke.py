@@ -159,11 +159,12 @@ Phases (any failure exits non-zero and prints no result):
                  forward's logits on both paths (see LOGIT_TOL), and
                  ``Model.loss`` on the batch through the kernels against the
                  plain path's (LOSS_TOL).
-  10. serve-mamba mamba2-2.7b at full width and depth (64 layers, d 2560, 80
-                 heads of 64, state 128, vocab 50280), fp32 weights from
-                 --seed, after llama3-8b's tensors are freed: the same
-                 steps as phase 9 (64 SSD launches, all of the tensor-core
-                 instance, and 129 RMSNorm launches per
+  10. serve-mamba mamba2-2.7b at full width (d 2560, 80 heads of 64, state
+                 128, vocab 50280) cut to its first 32 of 64 layers
+                 (``SERVE_MAMBA_LAYERS``; 15d trains all 64), fp32 weights
+                 from --seed, after llama3-8b's tensors are freed: the same
+                 steps as phase 9 (32 SSD launches, all of the tensor-core
+                 instance, and 65 RMSNorm launches per
                  ``forward_step``), the SSD kernel also held to its plain
                  version on every layer's inputs, and the control the plain
                  path with SSD chunks of 128 instead of 256 (the same
@@ -253,10 +254,27 @@ Phases (any failure exits non-zero and prints no result):
                  alone (``jamba_layer2``: a mamba mixer at d 8192, 256 SSD
                  heads, and the dense FFN of d_ff 24,576), one step gated as
                  (b), the control SSD chunks of 128.
-  16. report     one JSON line of kernels (launches summed over the six
-                 serving paths and phase 15's training steps, the
-                 relational kernel's over phases 4, 7, 7b's service and
-                 7c's manager, the backward kernels' over 15a-e; relational,
+  16. mesh      the main path on a DTensor mesh of one H100: 15a's
+                 llama3-8b (full width, 4 of 32 layers, 2 x 4096 tokens)
+                 on ``make_debug_mesh(1, 1)`` over a one-rank nccl process
+                 group made and destroyed here, parameters laid out by
+                 ``param_specs`` and the ZeRO-1 optimizer state by
+                 ``state_specs``, ``constrain`` active (``mesh_context``),
+                 flash attention and RMSNorm (and their backward kernels)
+                 through ``local_map``.  Tolerance: none.  The logits, the
+                 loss, every gradient leaf, one AdamW step's parameters and
+                 a ``restore(shardings=)`` of the plain run's checkpoint
+                 onto the mesh must be bit-identical to the same calls
+                 without a mesh, and the kernels' launches the same; each
+                 kernel is held to its plain version on the local shards
+                 it saw (the backward kernels as in 15a).  Then the dry run
+                 of ``llama3-8b x decode_32k x single`` (256 fake ranks,
+                 meta shards, on the host: model output with the H100
+                 constants of ``launch/roofline.py``) must record status ok.
+  17. report     one JSON line of kernels (launches summed over the six
+                 serving paths, phase 15's training steps and phase 16's,
+                 the relational kernel's over phases 4, 7, 7b's service and
+                 7c's manager, the backward kernels' over 15a-e and 16; relational,
                  flash attention, its backward and the SSD scan also by
                  instance, and the SSD backward), the card's name and
                  power limit, then the result line.
@@ -277,10 +295,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
-FP64_FLOP_PER_S = 34e12        # H100 SXM float64 outside the tensor cores
-BF16_TENSOR_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
-FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+# the H100 SXM rates of the bounds, from the port's roofline (its docstring
+# names the data sheet of each)
+from repro_torch.launch.roofline import (BF16_TENSOR_FLOP_PER_S, FP32_FLOP_PER_S, FP64_FLOP_PER_S,  # noqa: E402
+                                         HBM_BYTES_PER_S)
+
 MAIN_ROWS = 1_000_000
 KERNEL_SIZES = (0, 1, 7, 1023, 1025, 1_000_000, 16_000_000)
 TIMED_SIZES = (1_000_000, 16_000_000)
@@ -2878,6 +2897,12 @@ def phase_serve(seed: int):
 # -- 10. serve mamba2-2.7b ---------------------------------------------------------
 
 
+# serving mamba2-2.7b decodes token by token on the host, each layer's step
+# at the host's pace: cut to the first 32 of its 64 layers to keep the
+# script well inside its limit (15d still trains all 64)
+SERVE_MAMBA_LAYERS = 32
+
+
 def phase_serve_mamba(seed: int):
     import contextlib
     import dataclasses
@@ -2885,7 +2910,8 @@ def phase_serve_mamba(seed: int):
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
-    cfg = get_arch("mamba2-2.7b")
+    base = get_arch("mamba2-2.7b")
+    cfg = dataclasses.replace(base, n_layers=SERVE_MAMBA_LAYERS, pattern=base.pattern[:SERVE_MAMBA_LAYERS])
     # control: SSD in chunks of 128 instead of 256, the same function
     ctrl = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=128))
     return _serve("serve-mamba", cfg, seed,
@@ -3061,7 +3087,7 @@ def phase_serve_internvl2(seed: int):
 # ~74 GB before any check runs
 TRAIN_LAYERS = 4
 TRAIN_TOKENS = (2, 4097)  # the prefill shape of phase 8: the backward is timed where the forward is
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4  # enough for the loss to fall; each step is seconds of the script's limit
 TRAIN_LR = 1e-4
 # each leaf's relative L2 gradient error (kernels against the plain path)
 # within CONTROL_FACTOR x the control's (the plain path with attention blocks
@@ -3731,6 +3757,230 @@ def phase_train_jamba(seed: int):
         lambda: _plain_ssd_chunks(128), 1)
 
 
+# -- 16. the main path on a DTensor mesh of one H100 -----------------------------
+
+MESH_CELL = ("llama3-8b", "decode_32k", False)  # the dry run's cell: arch, shape, multi-pod
+
+
+class _first_kernel_inputs:
+    """Keep the inputs of the first flash attention and RMSNorm forward
+    launch that ``kernels/ops.py`` makes (under ``local_map``: the local
+    shards the kernel sees), for the kernels' check against their plain
+    versions on the path's own tensors."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.fa, self.rms = ops, ops._flash_kernel, ops._rmsnorm_kernel
+        self.flash = self.norm = None
+
+        def fa(q, k, v, **masks):
+            if self.flash is None:
+                self.flash = tuple(t.detach() for t in (q, k, v)) + (masks,)
+            return self.fa(q, k, v, **masks)
+
+        def rms(x, w, eps=1e-5):
+            if self.norm is None:
+                self.norm = (x.detach(), w.detach(), eps)
+            return self.rms(x, w, eps)
+
+        ops._flash_kernel, ops._rmsnorm_kernel = fa, rms
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._flash_kernel, self.ops._rmsnorm_kernel = self.fa, self.rms
+
+
+def _check_fwd_kernels(tag, rec):
+    """The forward kernels on the local shards the mesh path gave them,
+    against their plain versions: flash attention within 2e-2 of the plain
+    version and within ``_mirror_gap`` of the tensor-core mirror, RMSNorm
+    within one bf16 unit in the last place.  Returns the largest
+    differences."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    _, RMS, FA, _ = _kernel_modules()
+    q, k, v, masks = rec.flash
+    got = FA.flash_attention(q, k, v, **masks)
+    want = ref.flash_attention_reference(q, k, v, **masks)
+    torch.cuda.synchronize()
+    fa_err = float((got.float() - want.float()).abs().max())
+    gap, beyond, ok = _mirror_gap(got, ref.flash_attention_tc_reference(q, k, v, **masks))
+    log(f"{tag}: flash attention on the mesh's local shards {tuple(q.shape)} {q.dtype} {masks}: max abs "
+        f"err {fa_err:.3e} (tol 2e-2), against its mirror {gap:.3e}, {beyond} elements beyond two ulps")
+    if not (torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2) and ok):
+        fail(f"{tag}: flash attention parts from its plain version on the mesh path's tensors")
+    x, w, eps = rec.norm
+    got, want = RMS.rmsnorm(x, w, eps), ref.rmsnorm_reference(x, w, eps)
+    torch.cuda.synchronize()
+    rms_err = float((got.float() - want.float()).abs().max())
+    log(f"{tag}: rmsnorm on the mesh's local shards {tuple(x.shape)} {x.dtype}: max abs err {rms_err:.3e} "
+        f"(one bf16 ulp)")
+    if not _bf16_ulp_ok(got, want):
+        fail(f"{tag}: rmsnorm parts from its plain version on the mesh path's tensors")
+    return {"flash_attention": fa_err, "rmsnorm": rms_err}
+
+
+def _bits_differ(tag, what, plain, mesh):
+    """The leaves of ``mesh`` (DTensors on the mesh of one, whose local
+    tensor is the whole) whose bits differ from ``plain``'s; fails on any."""
+    import torch
+
+    from repro_torch.models.layers import tree_leaves
+
+    got = dict(tree_leaves(mesh))
+    bad = [p for p, t in tree_leaves(plain) if not torch.equal(t, got[p].to_local())]
+    log(f"{tag}: {what}: {len(got) - len(bad)} of {len(got)} leaves bit-identical to the run without a mesh")
+    if bad:
+        fail(f"{tag}: {what} differ from the run without a mesh at {len(bad)} leaves, first {bad[:4]}")
+
+
+def phase_mesh(seed: int):
+    """16: 15a's llama3-8b (full width, TRAIN_LAYERS of 32 layers, 2 x 4096
+    tokens) on a DTensor mesh of one H100 (``make_debug_mesh(1, 1)`` over a
+    one-rank nccl process group made and destroyed here), then the dry run
+    of ``MESH_CELL``."""
+    import dataclasses
+    import gc
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import mesh_context, shard_tree, spec_tree_to_shardings
+    from repro_torch.launch.mesh import dp_total, make_debug_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import AdamW, AdamWConfig, loss_and_grads, make_train_step
+
+    tag = "mesh"
+    base = get_arch("llama3-8b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS, pattern=base.pattern[:TRAIN_LAYERS])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_debug_mesh(1, 1)
+        model = build_model(cfg)
+        params = model.init(seed, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 1)
+        batch = {"tokens": torch.randint(2, cfg.vocab, TRAIN_TOKENS, generator=gen, device="cuda")}
+        log(f"{tag}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {model.n_params()} parameters from "
+            f"seed {seed}; mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}")
+
+        # without a mesh: the logits, the loss and the gradients
+        logits, t_fwd = _sync_s(lambda: model.forward(params, batch["tokens"][:, :-1]))
+        _reset_counts()
+        (loss, grads), t_plain = _sync_s(lambda: loss_and_grads(model, params, batch))
+        counts, inst = _counts(), _instance_counts()
+
+        # the same calls on the mesh: parameters laid out by param_specs (the
+        # shards are the tensors themselves on a mesh of one), the batch by its spec
+        pd = shard_tree(params, model.param_specs(), mesh, False)
+        bd = shard_tree(batch, {"tokens": ("dp", None)}, mesh, False)
+        with mesh_context(mesh, False):
+            with _first_kernel_inputs() as fwd_rec:
+                logits_m, t_fwd_m = _sync_s(lambda: model.forward(pd, bd["tokens"][:, :-1]))
+            _reset_counts()
+            with _last_bwd_inputs() as rec:
+                (loss_m, grads_m), t_mesh = _sync_s(lambda: loss_and_grads(model, pd, bd))
+            counts_m, inst_m = _counts(), _instance_counts()
+        log(f"{tag}: forward {t_fwd:.3f} s without a mesh, {t_fwd_m:.3f} s on it; loss and gradients "
+            f"{t_plain:.3f} s without, {t_mesh:.3f} s on it; logits placements {logits_m.placements}, loss "
+            f"{float(loss):.6f} (without) {float(loss_m.to_local()):.6f} (mesh)")
+        if not torch.equal(logits, logits_m.to_local()):
+            fail(f"{tag}: the logits on the mesh differ from the run without a mesh")
+        if not torch.equal(loss, loss_m.to_local()):
+            fail(f"{tag}: the loss on the mesh {float(loss_m.to_local())} differs from {float(loss)}")
+        del logits, logits_m
+        _bits_differ(tag, "gradients", grads, grads_m)
+        del grads_m
+        log(f"{tag}: launches of the loss and gradients without a mesh {counts}, on the mesh {counts_m}")
+        if counts_m != counts or inst_m != inst:
+            fail(f"{tag}: the kernels launched {counts_m} / {inst_m} on the mesh, {counts} / {inst} without")
+        _check_step_launches(tag, cfg, counts_m, inst_m)
+        worst = _check_bwd_kernels(tag, rec)
+        worst.update(_check_fwd_kernels(tag, fwd_rec))
+        del rec, fwd_rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one ZeRO-1 AdamW step: without a mesh on a copy of the weights with the
+        # gradients above, then make_train_step on the mesh (the main path:
+        # launches counted from 0 around it), state laid out by state_specs
+        opt = AdamW(AdamWConfig(lr=TRAIN_LR, warmup_steps=1, zero1=True))
+        plain_p = tree_map(torch.clone, params)
+        state = opt.init(plain_p)
+        plain_p, state, plain_m = opt.update(plain_p, grads, state)
+        del grads, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        state_m = shard_tree(opt.init(params), opt.state_specs(model.param_defs(), dp_total(mesh)), mesh, False)
+        moment = state_m["m"]["scan"]["l0"]["mixer"]["wq"]
+        step = make_train_step(model, opt)
+        _reset_counts()
+        with mesh_context(mesh, False):
+            (pd, state_m, metrics), t_step = _sync_s(lambda: step(pd, state_m, bd))
+        launches, launches_inst = _counts(), _instance_counts()
+        _check_step_launches(tag, cfg, launches, launches_inst)
+        log(f"{tag}: one ZeRO-1 AdamW step on the mesh in {t_step:.3f} s (moments {moment.placements}, "
+            f"parameters {pd['scan']['l0']['mixer']['wq'].placements}); loss {float(metrics['loss'].to_local()):.6f}, "
+            f"grad norm {float(metrics['grad_norm'].to_local()):.6f} ({float(plain_m['grad_norm']):.6f} without)")
+        if not torch.equal(metrics["loss"].to_local(), loss) or not torch.equal(
+                metrics["grad_norm"].to_local(), plain_m["grad_norm"]):
+            fail(f"{tag}: the step's loss or gradient norm on the mesh differs from the run without a mesh")
+        _bits_differ(tag, "parameters after the step", plain_p, pd)
+        del state_m, metrics, pd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # elastic restart: the plain run's parameters saved, restored onto the mesh
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            ck = CheckpointManager(tmp, async_write=False)
+            _, t_save = _sync_s(lambda: ck.save(1, plain_p))
+            shardings = spec_tree_to_shardings(model.param_specs(), mesh, False)
+            (back, _), t_restore = _sync_s(lambda: ck.restore(1, plain_p, shardings=shardings))
+        log(f"{tag}: checkpoint of the parameters after the step saved in {t_save:.2f} s, restored onto the "
+            f"mesh with shardings= in {t_restore:.2f} s")
+        _bits_differ(tag, "restored parameters", plain_p, back)
+        peak = torch.cuda.max_memory_allocated()
+        del back, plain_p, params, batch, bd
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag}: device memory high-water mark {peak / 2**30:.2f} GiB")
+
+    # the dry run of one production cell (model output with H100 constants:
+    # meta shards over a fake process group of 256 ranks, on the host)
+    import pathlib
+
+    from repro_torch.launch.dryrun import run_cell
+
+    arch, shape, multi = MESH_CELL
+    out_dir = pathlib.Path(ROOT, "build", "dryrun")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    cell = run_cell(arch, shape, multi, out_dir, tag="chip")
+    log(f"{tag}: dry run {arch} x {shape} x {'multi' if multi else 'single'} in "
+        f"{time.perf_counter() - t0:.1f} s (model output, H100 constants): {json.dumps(cell)}")
+    if cell["status"] != "ok":
+        fail(f"{tag}: the dry-run cell {arch} x {shape} did not run: {cell.get('error')}")
+    return {"launches": launches, "instances": launches_inst, "worst": worst, "dryrun": cell}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3784,8 +4034,9 @@ def main() -> int:
     run("restart", phase_restart, args.seed)
     train_mamba = run("train-mamba", phase_train_mamba, args.seed)
     train_jamba = run("train-jamba", phase_train_jamba, args.seed)
+    mesh = run("mesh", phase_mesh, args.seed)
     serving = (serve, mamba, scout, jamba, whisper, internvl2)
-    training = (train, train_whisper, train_mamba, train_jamba)
+    training = (train, train_whisper, train_mamba, train_jamba, mesh)
     shape = main["main_shape"]
     kernels = [{
         "name": "relational",

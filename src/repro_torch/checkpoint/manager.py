@@ -20,8 +20,11 @@ array under ``sha256(bytes + str(dtype) + str(shape))[:32]``, and
 same state the two packages write the same ``index.json`` and object files,
 and each restores the other's checkpoints.  ``meta.json``'s ``"treedef"``
 describes the tree in the port's own words (the reference writes JAX's).
-A leaf whose dtype numpy lacks (bf16) raises.  Restoring onto another mesh
-(``shardings=``) comes with the sharding slice (ROADMAP queue 1, item 5).
+A leaf whose dtype numpy lacks (bf16) raises.  A DTensor leaf is saved as
+the full tensor it stands for.  ``restore(..., shardings=)`` re-shards each
+restored leaf onto the current mesh as a DTensor (elastic restart):
+``shardings`` is a tree like ``like`` of ``distributed.sharding.Sharding``
+(``spec_tree_to_shardings``), or None at a leaf to restore it plain.
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ import numpy as np
 import torch
 
 
-def _named_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+def _named_leaves(tree, prefix: str = "", is_leaf=None) -> List[Tuple[str, Any]]:
     """``(name, leaf)`` in the reference's order: dict keys sorted, tuple and
-    list items by index."""
+    list items by index (a node for which ``is_leaf`` holds is a leaf)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (tuple, list)):
@@ -50,7 +55,7 @@ def _named_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
         return [(prefix, tree)]
     out = []
     for k, v in items:
-        out.extend(_named_leaves(v, f"{prefix}/{k}" if prefix else k))
+        out.extend(_named_leaves(v, f"{prefix}/{k}" if prefix else k, is_leaf))
     return out
 
 
@@ -75,6 +80,10 @@ def _rebuild(like, leaves: Dict[str, Any], prefix: str = ""):
 def _host(name: str, leaf) -> np.ndarray:
     """A host copy of ``leaf`` as a C-contiguous numpy array."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:
             raise ValueError(f"checkpoint leaf {name!r} is bf16, which numpy cannot hold")
         return leaf.detach().to("cpu", copy=True).contiguous().numpy()
@@ -178,9 +187,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int], like: Any) -> Tuple[Any, Dict]:
+    def restore(self, step: Optional[int], like: Any, *, shardings: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like``: every leaf a tensor on the
-        device of ``like``'s leaf of the same name, in the stored dtype."""
+        device of ``like``'s leaf of the same name, in the stored dtype; with
+        ``shardings``, each leaf that has a ``Sharding`` there is distributed
+        over its mesh by its placements instead (a DTensor on the mesh's
+        device)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -189,9 +201,20 @@ class CheckpointManager:
         snap = self.dir / f"step_{step:08d}"
         index = json.loads((snap / "index.json").read_text())
         meta = json.loads((snap / "meta.json").read_text())
+        shard = {}
+        if shardings is not None:
+            from repro_torch.distributed.sharding import Sharding
+
+            shard = dict(_named_leaves(shardings, is_leaf=lambda x: isinstance(x, Sharding)))
         leaves = {}
         for name, ref_leaf in _named_leaves(like):
-            arr = np.load(self.objects / f"{index[name]['object']}.npy")
-            device = ref_leaf.device if isinstance(ref_leaf, torch.Tensor) else "cpu"
-            leaves[name] = torch.from_numpy(arr).to(device)
+            arr = torch.from_numpy(np.load(self.objects / f"{index[name]['object']}.npy"))
+            shd = shard.get(name)
+            if shd is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                leaves[name] = distribute_tensor(arr.to(shd.mesh.device_type), shd.mesh, list(shd.placements))
+            else:
+                device = ref_leaf.device if isinstance(ref_leaf, torch.Tensor) else "cpu"
+                leaves[name] = arr.to(device)
         return _rebuild(like, leaves), meta

@@ -383,16 +383,53 @@ class TorchPlane(DataPlane):
         plan = self._proj_plan(op.get("cols"))
         return self._eval_proj_plan(plan, inputs[0], D.PROJECT)
 
+    # -- reporting -------------------------------------------------------------
+    def roofline_report(self, n: int = 1_000_000) -> List[Dict]:
+        """Roofline terms of the plane's relational bodies at ``n`` rows: the
+        filter and project programs of the relational kernel (its plain
+        version, the same function) and the join probe, traced on meta
+        tensors (no device allocation) with ``launch/roofline.py``'s H100
+        constants.  Reported only: the plane lowers the same operators to
+        the kernel whatever ``bandwidth_bound`` says (the reference gates
+        its Pallas lowering on it; the port has no fallback to gate)."""
+        from repro_torch.launch.roofline import kernel_roofline
+
+        e1 = LinExpr.make({"a": Fraction(5, 2), "b": -1}, 1)
+        e2 = LinExpr.make({"c": Fraction(1, 3)}, Fraction(-1, 2))
+        pred = Pred.and_(Pred.of(LinCmp(e1, "<=")), Pred.of(LinCmp(e2, "<")))
+        pplan = self._compile_pred(pred)
+        jplan = self._compile_proj((("x", e1), ("y", e2)))
+
+        def cols(k, dtype=torch.float64):
+            return [torch.empty(n, dtype=dtype, device="meta") for _ in range(k)]
+
+        kernels = [
+            ("filter", lambda *c: R.relational_reference(pplan.program, c), cols(len(pplan.columns))),
+            ("project", lambda *c: R.relational_reference(jplan.program, c), cols(len(jplan.columns))),
+            ("join_probe", _join_probe_body, cols(2, torch.int64)),
+        ]
+        report: List[Dict] = []
+        for name, fn, args in kernels:
+            r = kernel_roofline(fn, *args)
+            report.append({
+                "kernel": name,
+                "rows": n,
+                "flops": r.flops,
+                "hbm_bytes": r.hbm_bytes,
+                "t_compute_s": r.t_compute,
+                "t_memory_s": r.t_memory,
+                "bottleneck": r.bottleneck,
+                "bandwidth_bound": r.t_memory >= r.t_compute,
+            })
+        return report
+
     # -- JOIN: probe over unique-compressed keys --------------------------------
     def _probe(self, lk: np.ndarray, rk: np.ndarray):
         """Sorted probe on the device: a stable sort of the right codes and
         two searchsorteds.  On int64 codes this is the unique stable
         permutation, so it equals numpy's ``argsort(kind="stable")``."""
         self.device_probes += 1
-        lk_t, rk_t = self._to_device(lk), self._to_device(rk)
-        sr, order = torch.sort(rk_t, stable=True)
-        lo = torch.searchsorted(sr, lk_t)
-        hi = torch.searchsorted(sr, lk_t, right=True)
+        order, lo, hi = _join_probe_body(self._to_device(lk), self._to_device(rk))
         return self._to_host(order), self._to_host(lo), self._to_host(hi)
 
     def _join(self, op: D.Operator, inputs: List[Table]) -> Table:
@@ -583,6 +620,13 @@ class TorchPlane(DataPlane):
                 hu[i] = zlib.crc32((salt + ":" + repr(v)).encode()) & 0x7FFFFFFF
             h = hu[inv.reshape(-1)]
         return src.with_col(out, (h % k).astype(np.float64))
+
+
+def _join_probe_body(lk: torch.Tensor, rk: torch.Tensor):
+    """The join probe: a stable sort of the right codes, then the left codes'
+    first and last match by two searchsorteds."""
+    sr, order = torch.sort(rk, stable=True)
+    return order, torch.searchsorted(sr, lk), torch.searchsorted(sr, lk, right=True)
 
 
 def _numeric(t: Table, cols: Sequence[str]) -> bool:

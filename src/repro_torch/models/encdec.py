@@ -21,7 +21,10 @@ throughout.  The decode step's cross-attention is the plain
 under activation checkpointing, as the reference's ``jax.checkpoint`` over
 its decoder scan (the encoder is not checkpointed there either).  The
 serving entry points (``encode``, ``encdec_forward``,
-``encdec_decode_step``) run under ``torch.no_grad``.
+``encdec_decode_step``) run under ``torch.no_grad``.  Under a mesh context
+the activations are constrained batch over "dp" where the reference's are
+(the encoder's input and each layer's exit); ``encdec_cache_specs`` is the
+decode caches' logical spec.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as A
-from repro_torch.models.layers import (PD, checkpointed, dense, mlp_block, mlp_defs, rms_norm, stack_defs,
-                                       token_loss, tree_map)
+from repro_torch.models.layers import (PD, checkpointed, dense, embed, merge_heads, mlp_block, mlp_defs, rms_norm,
+                                       split_heads, stack_defs, token_loss, tree_map)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -74,36 +78,35 @@ def _layer(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def _cross_attn(p, x, enc_k, enc_v, cfg: ArchConfig, attn_impl: str) -> torch.Tensor:
     """x (B, S, d) decoder states over enc_k, enc_v (B, T, KV, Dh)."""
-    B, S, d = x.shape
     H, Dh = cfg.n_heads, cfg.d_head
     h = rms_norm(x, p["ln"], cfg.rms_eps, impl=attn_impl)
-    q = dense(h, p["wq"]).reshape(B, S, H, Dh)
+    q = split_heads(dense(h, p["wq"]), H, Dh)
     o = kops.flash_attention(q, enc_k, enc_v, causal=False, impl=attn_impl)
-    return x + dense(o.reshape(B, S, H * Dh), p["wo"])
+    return x + dense(merge_heads(o), p["wo"])
 
 
 def _enc_kv(p, enc_out: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    B, T, d = enc_out.shape
     KV, Dh = cfg.n_kv_heads, cfg.d_head
-    k = dense(enc_out, p["wk"]).reshape(B, T, KV, Dh)
-    v = dense(enc_out, p["wv"]).reshape(B, T, KV, Dh)
+    k = split_heads(dense(enc_out, p["wk"]), KV, Dh)
+    v = split_heads(dense(enc_out, p["wv"]), KV, Dh)
     return k, v
 
 
 def _enc_layer(lp, x, cfg: ArchConfig, attn_impl: str) -> torch.Tensor:
     x = A.attn_block(lp["self"], x, cfg, "attn", causal=False, attn_impl=attn_impl)
-    return mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
+    return constrain(mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl), ("dp", None, None))
 
 
 def _dec_layer(lp, x, enc_out, positions, cfg: ArchConfig, attn_impl: str) -> torch.Tensor:
     x = A.attn_block(lp["self"], x, cfg, "attn", positions=positions, attn_impl=attn_impl)
     k, v = _enc_kv(lp["cross"], enc_out, cfg)
     x = _cross_attn(lp["cross"], x, k, v, cfg, attn_impl)
-    return mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
+    return constrain(mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl), ("dp", None, None))
 
 
 def _encode(params, frames: torch.Tensor, cfg: ArchConfig, attn_impl: str) -> torch.Tensor:
     x = frames.to(COMPUTE_DTYPE) + params["enc_pos"].to(COMPUTE_DTYPE)[None]
+    x = constrain(x, ("dp", None, None))
     for i in range(cfg.encoder.n_layers):
         x = _enc_layer(_layer(params["enc"], i), x, cfg, attn_impl)
     return rms_norm(x, params["enc_ln"], cfg.rms_eps, impl=attn_impl)
@@ -119,7 +122,7 @@ def _logits(params, frames, inputs, cfg: ArchConfig, attn_impl: str, remat: bool
     """The forward of ``encdec_forward``, differentiable, each decoder layer
     checkpointed when ``remat``."""
     enc_out = _encode(params, frames, cfg, attn_impl)
-    x = params["embed"][inputs].to(COMPUTE_DTYPE)
+    x = embed(params["embed"], inputs).to(COMPUTE_DTYPE)
     positions = torch.arange(inputs.shape[1], device=x.device)
 
     def layer_fn(x, i):
@@ -170,6 +173,22 @@ def encdec_cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]
     }}
 
 
+def encdec_cache_specs(cfg: ArchConfig, long_context: bool) -> Dict[str, Any]:
+    """The logical spec of every cache of ``encdec_cache_shapes``."""
+    # whisper has 6 KV heads (not divisible by tp=16) and only 1500
+    # encoder frames — keep cross-KV replicated over tp
+    per = {
+        "self": A.attn_cache_spec(long_context),
+        "cross_k": ("dp", None, None, None),
+        "cross_v": ("dp", None, None, None),
+    }
+    return {"dec": {
+        "self": {name: (None,) + spec for name, spec in per["self"].items()},
+        "cross_k": (None,) + per["cross_k"],
+        "cross_v": (None,) + per["cross_v"],
+    }}
+
+
 @torch.no_grad()
 def encdec_decode_step(
     params: Dict[str, Any],
@@ -183,10 +202,9 @@ def encdec_decode_step(
     """One decoder step against the cross K/V in ``caches`` (the caller
     fills them from the encoder; zeros otherwise): (logits (B, V) fp32,
     caches).  The self-attention caches are updated in place."""
-    x = params["embed"][token][:, None, :].to(COMPUTE_DTYPE)
+    x = embed(params["embed"], token)[:, None, :].to(COMPUTE_DTYPE)
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), int(pos), dtype=torch.int64, device=x.device)
-    B = x.shape[0]
     H, Dh = cfg.n_heads, cfg.d_head
     dec = caches["dec"]
     T = dec["cross_k"].shape[2]
@@ -195,9 +213,9 @@ def encdec_decode_step(
         x, _ = A.attn_decode_block(lp["self"], x, {n: c[i] for n, c in dec["self"].items()},
                                    pos, cfg, "attn", impl=impl)
         h = rms_norm(x, lp["cross"]["ln"], cfg.rms_eps, impl=impl)
-        q = dense(h, lp["cross"]["wq"]).reshape(B, H, Dh)
+        q = split_heads(dense(h, lp["cross"]["wq"]), H, Dh)[:, 0]
         o = kref.decode_attention_reference(q, dec["cross_k"][i], dec["cross_v"][i], T - 1)
-        x = x + dense(o.reshape(B, 1, H * Dh), lp["cross"]["wo"])
+        x = x + dense(merge_heads(o[:, None]), lp["cross"]["wo"])
         x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=impl)
     x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=impl)
     logits = dense(x, params["lm_head"])[:, 0]

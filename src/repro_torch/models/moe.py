@@ -27,9 +27,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import PD, rms_norm, silu
+from repro_torch.distributed.sharding import on_local_shards, row_placements
+from repro_torch.models.layers import PD, rms_norm, silu, whole_rows
 
 DISPATCHES = ("gather", "einsum")
 
@@ -92,6 +94,25 @@ def _experts(expert_in: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -
     return out.reshape(E, B, C, d).transpose(0, 1)
 
 
+def _moe_on_mesh(p, x, cfg: ArchConfig, **kw) -> torch.Tensor:
+    """``moe_block`` on a mesh, each rank on its own rows through
+    ``local_map`` with every expert's weights gathered whole (the routing's
+    top-k, one-hot and scatter have no DTensor rules).  The dispatch groups
+    are batch rows, so a rank's rows route as they would on one device; the
+    weights' gradients are partial sums over the ranks that split the
+    rows.  The reference's expert-parallel all-to-all is not ported: this
+    moves every expert's weights to every rank, each step."""
+    keys = sorted(p)
+    x = whole_rows(x)
+    rows = row_placements(x)
+
+    def local(x, *ws):
+        return moe_block(dict(zip(keys, ws)), x, cfg, **kw)
+
+    return on_local_shards(local, (x, *(p[k] for k in keys)),
+                           (rows, *((None,) * p[k].dim() for k in keys)), (rows,))
+
+
 def moe_block(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, d)
@@ -105,10 +126,13 @@ def moe_block(
     a slot to spare (the rest dropped: they add nothing)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}; one of {DISPATCHES}")
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(p, x, cfg, capacity_factor=capacity_factor, dispatch=dispatch, impl=impl)
     B, S, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     C = capacity(cfg, S, capacity_factor)
 
+    x = whole_rows(x)
     h = rms_norm(x, p["ln"], cfg.rms_eps, impl=impl)                      # (B, S, d)
     gate_vals, gate_idx, pos_in_expert, keep = route(h, p["w_gate"], K, C)
     slot = torch.where(keep, pos_in_expert, C)                           # C: dropped

@@ -18,7 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.layers import PD, dense, rms_norm, silu
+from repro_torch.models.layers import PD, dense, rms_norm, silu, whole_rows
 
 
 def _dims(cfg: ArchConfig):
@@ -92,6 +92,7 @@ def mamba_block(
 ) -> torch.Tensor:
     s, d_inner, H, conv_dim, _ = _dims(cfg)
     B, S, d = x_in.shape
+    x_in = whole_rows(x_in)
     h = rms_norm(x_in, p["ln"], cfg.rms_eps, impl=ssd_impl)
     z = dense(h, p["z_proj"])
     xs = _causal_conv(dense(h, p["x_proj"]), p["conv_x_w"], p["conv_x_b"], s.d_conv)
@@ -126,9 +127,9 @@ def mamba_cache_shape(cfg: ArchConfig, batch: int) -> Dict[str, Tuple[Tuple[int,
 
 
 def mamba_cache_spec(long_context: bool) -> Dict[str, Tuple]:
-    """The reference's logical sharding of the caches, as documentation:
-    state is seq-independent; heads/channels over tp, batch over dp
-    (long-context decode has batch=1 — batch unsharded there)."""
+    """The caches' logical sharding: state is seq-independent; heads/channels
+    over tp, batch over dp (long-context decode has batch=1 — batch
+    unsharded there)."""
     if long_context:
         return {"conv": (None, None, "tp"), "ssm": (None, "tp", None, None)}
     return {

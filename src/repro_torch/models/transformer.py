@@ -11,7 +11,11 @@ has an ``ffn_moe`` (``models/moe.py``) in place of its dense ``ffn``.
 
 ``lm_loss`` is differentiable; with ``remat`` each period of the stack and
 each tail layer runs under activation checkpointing, as the reference's
-``jax.checkpoint(period_fn)``.  The serving entry points (``lm_forward``,
+``jax.checkpoint(period_fn)``.  Under a mesh context the activations are
+constrained where the reference's are (``distributed/sharding.py``): batch
+over "dp" after the embedding, sequence over "tp" between layers
+(Megatron-SP), the logits' vocabulary over "tp"; ``lm_cache_specs`` is the
+decode caches' logical spec.  The serving entry points (``lm_forward``,
 ``lm_decode_step``, ``lm_prefill``) run under ``torch.no_grad``.
 """
 
@@ -22,11 +26,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import (PD, checkpointed, dense, mlp_block, mlp_defs, rms_norm, stack_defs,
-                                       token_loss, tree_map, zeros_tree)
+from repro_torch.models.layers import (PD, checkpointed, dense, embed, mlp_block, mlp_defs, rms_norm,
+                                       stack_defs, token_loss, tree_map, whole_rows, zeros_tree)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -60,10 +65,16 @@ def _segments(cfg: ArchConfig) -> Tuple[int, int, int]:
     return p, n_periods, rem
 
 
+def vocab_axis(V: int) -> Any:
+    """Vocab-parallel only when the vocab divides the 16-wide model axis —
+    whisper (51865) / internvl (92553) / mamba2 (50280) replicate instead."""
+    return "tp" if V % 16 == 0 else None
+
+
 def lm_param_defs(cfg: ArchConfig) -> Dict[str, Any]:
     p, n_periods, rem = _segments(cfg)
     d, V = cfg.d_model, cfg.vocab
-    tp = "tp" if V % 16 == 0 else None
+    tp = vocab_axis(V)
     defs: Dict[str, Any] = {
         "embed": PD((V, d), (tp, None), scale=1.0 / (d ** 0.5)),
         "final_ln": PD((d,), (None,), init="ones"),
@@ -108,7 +119,9 @@ def _block_fwd(lp, x, cfg: ArchConfig, kind: str, positions, attn_impl: str) -> 
         x = M.moe_block(lp["ffn_moe"], x, cfg, impl=attn_impl)
     elif "ffn" in lp:
         x = mlp_block(lp["ffn"], x, cfg.rms_eps, impl=attn_impl)
-    return x
+    # Megatron-SP: activations sequence-sharded between layers, heads and
+    # ffn sharded inside blocks
+    return constrain(x, ("dp", "tp", None))
 
 
 def attn_impl_to_ssd(attn_impl: str) -> str:
@@ -119,10 +132,11 @@ def _logits(params, tokens, cfg: ArchConfig, attn_impl: str, prefix_embeds, rema
     """The forward of ``lm_forward``, differentiable, each period (and tail
     layer) checkpointed when ``remat``."""
     p, n_periods, rem = _segments(cfg)
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    x = embed(params["embed"], tokens).to(COMPUTE_DTYPE)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(COMPUTE_DTYPE), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
+    x = constrain(x, ("dp", None, None))
 
     def period_fn(x, period):
         for j in range(p):
@@ -138,8 +152,8 @@ def _logits(params, tokens, cfg: ArchConfig, attn_impl: str, prefix_embeds, rema
         x = checkpointed(remat, period_fn, x, period)
     for i in range(rem):
         x = checkpointed(remat, tail_fn, x, i)
-    x = rms_norm(x, params["final_ln"], cfg.rms_eps, impl=attn_impl)
-    return dense(x, _head(params, cfg))
+    x = rms_norm(whole_rows(x), params["final_ln"], cfg.rms_eps, impl=attn_impl)
+    return constrain(dense(x, _head(params, cfg)), ("dp", None, vocab_axis(cfg.vocab)))
 
 
 @torch.no_grad()
@@ -196,6 +210,26 @@ def lm_cache_shapes(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, Any]:
     return out
 
 
+def lm_cache_specs(cfg: ArchConfig, long_context: bool) -> Dict[str, Any]:
+    """The logical spec of every cache of ``lm_cache_shapes``."""
+    p, n_periods, rem = _segments(cfg)
+
+    def layer_spec(kind):
+        if kind == "mamba":
+            return S.mamba_cache_spec(long_context)
+        return A.attn_cache_spec(long_context)
+
+    out: Dict[str, Any] = {}
+    if n_periods > 0:
+        out["scan"] = {
+            f"l{j}": {name: (None,) + spec for name, spec in layer_spec(cfg.pattern[j]).items()}
+            for j in range(p)
+        }
+    for i in range(rem):
+        out[f"tail{i}"] = layer_spec(cfg.pattern[n_periods * p + i])
+    return out
+
+
 def _block_decode(lp, cache, x, pos, cfg: ArchConfig, kind: str, impl: str):
     if kind == "mamba":
         x, cache = S.mamba_decode_block(lp["mixer"], x, cache, pos, cfg, impl=impl)
@@ -220,7 +254,7 @@ def lm_decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: returns (logits (B, V) in fp32, caches).  The caches
     are updated in place and returned."""
-    x = params["embed"][token][:, None, :].to(COMPUTE_DTYPE)
+    x = embed(params["embed"], token)[:, None, :].to(COMPUTE_DTYPE)
     if not isinstance(pos, torch.Tensor):
         # a fill on the device: no blocking host-to-device copy, so the host
         # queues the next steps while the device runs this one

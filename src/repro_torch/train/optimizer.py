@@ -8,10 +8,15 @@ correction and decoupled weight decay, and writes the new moments and
 parameters into the tensors it was given (the reference returns new
 arrays): one copy of the master weights and of both moments stays on the
 card, 30.8 GB for llama3-8b cut to 4 layers.  With ``compress_grads`` the
-state's error-feedback tree is replaced by the new one.  ``zero1_spec`` and
-``state_specs`` keep the reference's logical sharding rules as data; the
-mesh that reads them, and ``abstract_state``, come with the sharding slice
-(ROADMAP queue 1, item 5).
+state's error-feedback tree is replaced by the new one.
+
+``state_specs`` are the reference's logical specs of the state (``zero1``:
+``zero1_spec`` adds a "dp" shard to each moment), ``abstract_state`` its
+meta tensors.  On a mesh (DTensor parameters, gradients and state, laid out
+by ``distributed/sharding.py``) ``update`` is ZeRO-1: each leaf's gradient
+and parameter are redistributed to its moments' placements, the update runs
+on the shard this rank holds, and the new parameter is gathered back to
+the parameter's placements.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import PD, tree_leaves, tree_map
 
@@ -86,6 +92,17 @@ class AdamW:
                                    params)
         return state
 
+    def abstract_state(self, abstract_params) -> Dict[str, Any]:
+        """Meta tensors of the state of parameters ``abstract_params``."""
+        def zeros(p):
+            return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+        state = {"step": torch.empty((), dtype=torch.int32, device="meta"),
+                 "m": tree_map(zeros, abstract_params), "v": tree_map(zeros, abstract_params)}
+        if self.cfg.compress_grads:
+            state["ef"] = tree_map(zeros, abstract_params)
+        return state
+
     def state_specs(self, param_defs, dp_total: int):
         """The logical partition spec of every state leaf, from the
         parameters' ``PD`` tree (ZeRO-1 adds a "dp" shard)."""
@@ -122,18 +139,35 @@ class AdamW:
         b2c = 1.0 - cfg.b2 ** t
 
         for p, g, m, v in zip(_leaves(params), flat_g, _leaves(state["m"]), _leaves(state["v"])):
-            g = g.to(torch.float32) * scale
+            shard = _zero1_shard(p, m)
+            p32 = shard(p).to(torch.float32)
+            g = shard(g).to(torch.float32) * scale
             m2 = cfg.b1 * m + (1 - cfg.b1) * g
             v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
             mhat = m2 / b1c
             vhat = v2 / b2c
-            delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
-            p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
+            new = (p32 - lr * delta).to(p.dtype)
+            p.copy_(new if shard is _same else new.redistribute(p.device_mesh, p.placements))
             m.copy_(m2)
             v.copy_(v2)
-            del g, m2, v2, mhat, vhat, delta
+            del g, m2, v2, mhat, vhat, delta, p32, new
         state["step"] = step + 1
         return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _same(t):
+    return t
+
+
+def _zero1_shard(p, m):
+    """The map that takes a leaf laid out as the parameter ``p`` to the
+    layout of its moment ``m``: the identity for plain tensors and for a
+    moment laid out as its parameter; on a mesh whose moment carries the
+    ZeRO-1 "dp" shard, a redistribution to the moment's placements."""
+    if not isinstance(m, DTensor) or tuple(m.placements) == tuple(p.placements):
+        return _same
+    return lambda t: t.redistribute(m.device_mesh, m.placements)
 
 
 def _quantize(g: torch.Tensor, e: torch.Tensor):
