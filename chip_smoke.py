@@ -3759,7 +3759,14 @@ def phase_train_jamba(seed: int):
 
 # -- 16. the main path on a DTensor mesh of one H100 -----------------------------
 
-MESH_CELL = ("llama3-8b", "decode_32k", False)  # the dry run's cell: arch, shape, multi-pod
+# the dry run's cells (arch, shape, multi-pod): a dense one, and an MoE one,
+# expert-parallel over "model"
+MESH_CELLS = (("llama3-8b", "decode_32k", False), ("llama4-scout-17b-a16e", "decode_32k", False))
+MESH_SCOUT_LAYERS = 4  # phase 11's 4 of 48 layers, for the forward
+# the loss and gradients: 2 layers (~6.2e9 fp32 parameters, as many gradients,
+# twice over with the mesh's) on 2 x 1024 positions beside them
+MESH_SCOUT_GRAD_LAYERS = 2
+MESH_SCOUT_GRAD_TOKENS = (2, 1025)
 
 
 class _first_kernel_inputs:
@@ -3812,15 +3819,47 @@ def _check_fwd_kernels(tag, rec):
         f"err {fa_err:.3e} (tol 2e-2), against its mirror {gap:.3e}, {beyond} elements beyond two ulps")
     if not (torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2) and ok):
         fail(f"{tag}: flash attention parts from its plain version on the mesh path's tensors")
-    x, w, eps = rec.norm
+    return {"flash_attention": fa_err, "rmsnorm": _check_rmsnorm(tag, "", *rec.norm)}
+
+
+def _check_rmsnorm(tag, what, x, w, eps):
+    """The RMSNorm kernel on the local shard ``x`` that the mesh path gave
+    it, against its plain version within one bf16 unit in the last place;
+    returns the largest difference."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    RMS = _kernel_modules()[1]
     got, want = RMS.rmsnorm(x, w, eps), ref.rmsnorm_reference(x, w, eps)
     torch.cuda.synchronize()
-    rms_err = float((got.float() - want.float()).abs().max())
-    log(f"{tag}: rmsnorm on the mesh's local shards {tuple(x.shape)} {x.dtype}: max abs err {rms_err:.3e} "
+    err = float((got.float() - want.float()).abs().max())
+    log(f"{tag}: rmsnorm{what} on the mesh's local shards {tuple(x.shape)} {x.dtype}: max abs err {err:.3e} "
         f"(one bf16 ulp)")
     if not _bf16_ulp_ok(got, want):
-        fail(f"{tag}: rmsnorm parts from its plain version on the mesh path's tensors")
-    return {"flash_attention": fa_err, "rmsnorm": rms_err}
+        fail(f"{tag}: rmsnorm{what} parts from its plain version on the mesh path's tensors")
+    return err
+
+
+class _moe_norm_inputs:
+    """Keep the inputs of the first MoE block's RMSNorm (its ``ln``, on the
+    rows that ``local_map`` hands each rank)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.orig, self.norm = moe, moe.rms_norm, None
+
+        def rms(x, w, eps=1e-5, *, impl="auto"):
+            if self.norm is None:
+                self.norm = (x.detach(), w.detach(), eps)
+            return self.orig(x, w, eps, impl=impl)
+
+        moe.rms_norm = rms
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rms_norm = self.orig
 
 
 def _bits_differ(tag, what, plain, mesh):
@@ -3831,17 +3870,103 @@ def _bits_differ(tag, what, plain, mesh):
     from repro_torch.models.layers import tree_leaves
 
     got = dict(tree_leaves(mesh))
-    bad = [p for p, t in tree_leaves(plain) if not torch.equal(t, got[p].to_local())]
+    bad = [p for p, t in tree_leaves(plain) if not torch.equal(t, got[p].to_local().to(t.device))]
     log(f"{tag}: {what}: {len(got) - len(bad)} of {len(got)} leaves bit-identical to the run without a mesh")
     if bad:
         fail(f"{tag}: {what} differ from the run without a mesh at {len(bad)} leaves, first {bad[:4]}")
 
 
+def _add_counts(a, b):
+    """``a + b`` of two launch counts (``_counts`` or ``_instance_counts``)."""
+    return {k: _add_counts(v, b[k]) if isinstance(v, dict) else v + b[k] for k, v in a.items()}
+
+
+def _mesh_scout(tag, mesh, seed):
+    """llama4-scout-17b-a16e at full width on the mesh of one, through the
+    expert-parallel MoE block: phase 11's MESH_SCOUT_LAYERS layers' logits
+    on 2 x 4096 tokens, then the loss and gradients of its first
+    MESH_SCOUT_GRAD_LAYERS layers, each bit for bit the same calls without
+    a mesh with the same launches; the MoE ``ln``'s RMSNorm kernel held to
+    its plain version on the mesh path's rows.  Returns the mesh runs'
+    launches (the main path's) and the RMSNorm check's difference."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import mesh_context, shard_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import loss_and_grads
+
+    base = get_arch("llama4-scout-17b-a16e")
+    launches, inst, worst = None, None, 0.0
+    for n_layers, what in ((MESH_SCOUT_LAYERS, "logits"), (MESH_SCOUT_GRAD_LAYERS, "loss and gradients")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(base, n_layers=n_layers, pattern=base.pattern[:n_layers])
+        model = build_model(cfg)
+        params = model.init(seed, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 1)
+        shape = (2, 4097) if what == "logits" else MESH_SCOUT_GRAD_TOKENS
+        batch = {"tokens": torch.randint(2, cfg.vocab, shape, generator=gen, device="cuda")}
+        pd = shard_tree(params, model.param_specs(), mesh, False)
+        bd = shard_tree(batch, {"tokens": ("dp", None)}, mesh, False)
+        if what == "logits":
+            def plain_run():
+                return model.forward(params, batch["tokens"][:, :-1])
+
+            def mesh_run():
+                return model.forward(pd, bd["tokens"][:, :-1])
+        else:
+            def plain_run():
+                return loss_and_grads(model, params, batch)
+
+            def mesh_run():
+                return loss_and_grads(model, pd, bd)
+        _reset_counts()
+        want, t_plain = _sync_s(plain_run)
+        counts, inst_plain = _counts(), _instance_counts()
+        if what != "logits":  # the gradients wait on the host beside the mesh's run
+            want = (want[0], tree_map(lambda t: t.cpu(), want[1]))
+            gc.collect()
+            torch.cuda.empty_cache()
+        _reset_counts()
+        with mesh_context(mesh, False), _moe_norm_inputs() as rec:
+            got, t_mesh = _sync_s(mesh_run)
+        counts_m, inst_m = _counts(), _instance_counts()
+        log(f"{tag}: {cfg.name}, {n_layers} of 48 layers at full width, {what} on {shape[0]} x {shape[1] - 1} "
+            f"tokens: {t_plain:.3f} s without a mesh, {t_mesh:.3f} s on it; launches {counts} without, "
+            f"{counts_m} on the mesh")
+        if counts_m != counts or inst_m != inst_plain or not counts["rmsnorm"] or not counts["flash_attention"]:
+            fail(f"{tag}: scout's {what} launched {counts_m} / {inst_m} on the mesh, {counts} / {inst_plain} "
+                 f"without")
+        if what == "logits":
+            if not torch.equal(want, got.to_local()):
+                fail(f"{tag}: scout's logits on the mesh differ from the run without a mesh")
+        else:
+            loss, grads = want
+            if not torch.equal(loss, got[0].to_local()):
+                fail(f"{tag}: scout's loss on the mesh {float(got[0].to_local())} differs from {float(loss)}")
+            log(f"{tag}: scout's loss {float(loss):.6f} without a mesh and on it")
+            _bits_differ(tag, "scout's gradients", grads, got[1])
+        worst = max(worst, _check_rmsnorm(tag, f" (scout's MoE ln, {what})", *rec.norm))
+        launches = counts_m if launches is None else _add_counts(launches, counts_m)
+        inst = inst_m if inst is None else _add_counts(inst, inst_m)
+        del want, got, params, pd, batch, bd, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, inst, worst
+
+
 def phase_mesh(seed: int):
     """16: 15a's llama3-8b (full width, TRAIN_LAYERS of 32 layers, 2 x 4096
     tokens) on a DTensor mesh of one H100 (``make_debug_mesh(1, 1)`` over a
-    one-rank nccl process group made and destroyed here), then the dry run
-    of ``MESH_CELL``."""
+    one-rank nccl process group made and destroyed here), then
+    llama4-scout's expert-parallel MoE blocks on it (``_mesh_scout``), then
+    the dry run of ``MESH_CELLS``."""
     import dataclasses
     import gc
     import socket
@@ -3955,30 +4080,36 @@ def phase_mesh(seed: int):
         log(f"{tag}: checkpoint of the parameters after the step saved in {t_save:.2f} s, restored onto the "
             f"mesh with shardings= in {t_restore:.2f} s")
         _bits_differ(tag, "restored parameters", plain_p, back)
-        peak = torch.cuda.max_memory_allocated()
         del back, plain_p, params, batch, bd
+        scout_launches, scout_inst, scout_worst = _mesh_scout(tag, mesh, seed)
+        launches = _add_counts(launches, scout_launches)
+        launches_inst = _add_counts(launches_inst, scout_inst)
+        worst["rmsnorm"] = max(worst["rmsnorm"], scout_worst)
+        peak = torch.cuda.max_memory_allocated()
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"{tag}: device memory high-water mark {peak / 2**30:.2f} GiB")
 
-    # the dry run of one production cell (model output with H100 constants:
+    # the dry run of production cells (model output with H100 constants:
     # meta shards over a fake process group of 256 ranks, on the host)
     import pathlib
 
     from repro_torch.launch.dryrun import run_cell
 
-    arch, shape, multi = MESH_CELL
     out_dir = pathlib.Path(ROOT, "build", "dryrun")
     out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    cell = run_cell(arch, shape, multi, out_dir, tag="chip")
-    log(f"{tag}: dry run {arch} x {shape} x {'multi' if multi else 'single'} in "
-        f"{time.perf_counter() - t0:.1f} s (model output, H100 constants): {json.dumps(cell)}")
-    if cell["status"] != "ok":
-        fail(f"{tag}: the dry-run cell {arch} x {shape} did not run: {cell.get('error')}")
-    return {"launches": launches, "instances": launches_inst, "worst": worst, "dryrun": cell}
+    cells = []
+    for arch, shape, multi in MESH_CELLS:
+        t0 = time.perf_counter()
+        cell = run_cell(arch, shape, multi, out_dir, tag="chip")
+        log(f"{tag}: dry run {arch} x {shape} x {'multi' if multi else 'single'} in "
+            f"{time.perf_counter() - t0:.1f} s (model output, H100 constants): {json.dumps(cell)}")
+        if cell["status"] != "ok":
+            fail(f"{tag}: the dry-run cell {arch} x {shape} did not run: {cell.get('error')}")
+        cells.append(cell)
+    return {"launches": launches, "instances": launches_inst, "worst": worst, "dryrun": cells}
 
 
 def _leaves(tree):

@@ -148,6 +148,20 @@ class FlashAttentionVJP(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def _tiles(n: int, meta: bool):
+    """``range(n)`` for a tile loop.  On meta tensors (the dry run's shards,
+    which hold no values) only tile 0, traced inside ``loop_trips(n)``: every
+    tile issues the same ops on the same shapes, so the trace's counts are
+    the whole loop's, and a 32k-token layer's 64 x 64 tiles cost one."""
+    if not meta:
+        yield from range(n)
+        return
+    from repro_torch.launch.roofline import loop_trips
+
+    with loop_trips(n):
+        yield 0
+
+
 def _flash_fwd_impl(
     q, k, v, causal, window, chunk, q_block, kv_block, q_offset
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,14 +187,15 @@ def _flash_fwd_impl(
     f = qb.dtype
     scale = _inv_sqrt(D)
 
+    meta = q.device.type == "meta"
     outs, lses = [], []
-    for qi in range(nq):
+    for qi in _tiles(nq, meta):
         q_tile = qb[:, qi]                                  # (B, q_block, KV, G, D)
         qpos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
         acc = torch.zeros((B, KV, G, q_block, D), dtype=f, device=dev)
         m = torch.full((B, KV, G, q_block), NEG_INF, dtype=f, device=dev)
         l = torch.zeros((B, KV, G, q_block), dtype=f, device=dev)
-        for ki in range(nk):
+        for ki in _tiles(nk, meta):
             kpos = ki * kv_block + torch.arange(kv_block, device=dev)
             s = torch.einsum("bqkgd,btkd->bkgqt", q_tile, kb[:, ki]) * scale
             s = s + _block_bias(qpos, kpos, T, causal, window, chunk).to(f)[None, None, None]
@@ -196,6 +211,8 @@ def _flash_fwd_impl(
         # (B, KV, G, q_block, D) -> (B, q_block, KV, G, D)
         outs.append(out.permute(0, 3, 1, 2, 4))
         lses.append(lse.permute(0, 3, 1, 2))
+    if meta:  # the other tiles' results, of the same shapes, for the cat
+        outs, lses = outs * nq, lses * nq
     out = torch.cat(outs, dim=1).reshape(B, nq * q_block, H, D)
     lse = torch.cat(lses, dim=1).reshape(B, nq * q_block, H)
     return out[:, :S].to(q.dtype), lse[:, :S]
@@ -251,13 +268,14 @@ def flash_attention_bwd_reference(
     delta = torch.sum(ob * gb, dim=-1)  # (B, nq, q_block, KV, G)
 
     dq_acc = torch.zeros((B, nq, q_block, KV, G, D), dtype=f, device=dev)
+    meta = q.device.type == "meta"
     dk_all, dv_all = [], []
-    for ki in range(nk):
+    for ki in _tiles(nk, meta):
         k_tile, v_tile = kb[:, ki], vb[:, ki]
         kpos = ki * kv_block + torch.arange(kv_block, device=dev)
         dk_acc = torch.zeros((B, kv_block, KV, D), dtype=f, device=dev)
         dv_acc = torch.zeros((B, kv_block, KV, D), dtype=f, device=dev)
-        for qi in range(nq):
+        for qi in _tiles(nq, meta):
             q_tile, g_tile = qb[:, qi], gb[:, qi]
             l_tile, d_tile = lseb[:, qi], delta[:, qi]
             qpos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
@@ -271,6 +289,8 @@ def flash_attention_bwd_reference(
             dk_acc = dk_acc + torch.einsum("bkgqt,bqkgd->btkd", ds, q_tile)
         dk_all.append(dk_acc)
         dv_all.append(dv_acc)
+    if meta:  # the other tiles' results, of the same shapes, for the cat
+        dk_all, dv_all = dk_all * nk, dv_all * nk
     dq = dq_acc.reshape(B, nq * q_block, H, D)[:, :S].to(q.dtype)
     dk = torch.cat(dk_all, dim=1)[:, :T].to(k.dtype)
     dv = torch.cat(dv_all, dim=1)[:, :T].to(v.dtype)

@@ -12,9 +12,10 @@ For every (architecture × input shape × mesh) cell:
     and compiled it: success proves the sharding is coherent, here that
     DTensor can run every op of the step on these placements),
   * sum the per-rank shard bytes of the arguments and outputs (torch has no
-    ``memory_analysis()``); the step's temporaries are not counted
-    (``temp_bytes`` null): ``torch.distributed._tools.mem_tracker.MemTracker``
-    counts a DTensor's global bytes under torch 2.11, not a rank's,
+    ``memory_analysis()``), and add the step's temporaries: the trace's
+    ``temp_bytes``, the peak of the bytes live in the storages that the
+    rank's local ops allocate and that are not outputs (``roofline.py``),
+    as the reference adds ``temp_size_in_bytes``;
   * derive the three roofline terms with H100 constants and write the cell
     record to a JSON file.
 
@@ -54,8 +55,6 @@ from repro_torch.train.optimizer import AdamW, AdamWConfig
 from repro_torch.train.train_step import make_train_step
 
 DEVICE_BYTES = 80e9  # one H100's HBM (NVIDIA H100 data sheet, SXM)
-TEMP_NOTE = ("not counted: MemTracker counts a DTensor's global bytes under torch 2.11, not a rank's; "
-             "per_device_total is arguments + outputs - aliased")
 
 
 def _local_shape(shape, where, mesh):
@@ -174,9 +173,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Path,
     arg_ids = {id(t) for t in _leaves(args)}
     alias = sum(_local_bytes(t) for t in _leaves(out) if id(t) in arg_ids)
     arg_bytes, out_bytes = _local_bytes(args), _local_bytes(out)
-    per_dev_bytes = arg_bytes + out_bytes - alias
+    temp = an.temp_bytes
+    per_dev_bytes = arg_bytes + out_bytes - alias + temp
     print(f"[{arch} × {shape_name} × {mesh_name}] MEMORY: arguments {arg_bytes} outputs {out_bytes} "
-          f"aliased {alias} bytes a rank; temporaries not counted")
+          f"aliased {alias} temporaries {temp} bytes a rank")
     print(f"[{arch} × {shape_name} × {mesh_name}] TRACE: flops={an.flops:.3e} bytes={an.traffic_bytes:.3e} "
           f"collective bytes={an.total_collective_bytes:.3e} ops={an.n_ops}")
     rl = RL.roofline_from_trace(an, model_flops=model_flops, n_chips=n_chips)
@@ -191,8 +191,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Path,
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
             "alias_bytes": alias,
-            "temp_bytes": None,
-            "temp_note": TEMP_NOTE,
+            "temp_bytes": temp,
+            # the largest temporaries live at the peak, by op and result
+            "temp_at_peak": dict(list(an.temp_at_peak.items())[:8]),
             "per_device_total": per_dev_bytes,
             "fits_80G": bool(per_dev_bytes < DEVICE_BYTES),
         },
@@ -226,6 +227,7 @@ def main():
                 if path.exists():
                     print(f"skip existing {path.name}")
                     continue
+                t0 = time.time()
                 try:
                     rec = run_cell(arch, shape, multi_pod, out_dir, tag=args.tag)
                 except Exception as e:  # record failures, keep sweeping
@@ -239,8 +241,9 @@ def main():
                         "trace": traceback.format_exc()[-4000:],
                     }
                     print(f"[{arch} × {shape} × {mesh_name}] FAILED: {e}")
+                rec["wall_s"] = round(time.time() - t0, 1)  # the cell's seconds on this host
                 path.write_text(json.dumps(rec, indent=2))
-                print(f"wrote {path.name} status={rec['status']}")
+                print(f"wrote {path.name} status={rec['status']} in {rec['wall_s']} s")
     sys.exit(1 if failures else 0)
 
 

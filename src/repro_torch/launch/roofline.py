@@ -33,11 +33,26 @@ runs on fake tensors of the global shapes are not counted.  It accumulates
                    counts must agree.
 
 The port's layer loops are Python loops, unrolled at trace time, so every
-layer's ops are seen and there is no while-loop trip count to correct for.
-An activation-checkpointed layer's recompute runs in the backward and is
+layer's ops are seen.  A loop whose every trip issues the same ops on the
+same shapes can instead run one trip inside ``loop_trips(n)``: every count
+of that trip (flops, traffic, raw bytes, op counts, collectives and the
+``ops`` table) is multiplied by ``n``, as the reference's HLO walk
+multiplies a while body by its known trip count.  The plain attention does
+this on meta tensors (``kernels/ref.py``), where the tile loops of a
+32k-token layer would otherwise be traced tile by tile.  An
+activation-checkpointed layer's recompute runs in the backward and is
 counted, collectives included, as XLA's remat is.  Meta tensors trace the
 same ops as real ones without storage, which is how the dry run traces a
 production mesh (``launch/dryrun.py``).
+
+  * temporaries  — ``temp_bytes``, the peak of the bytes live in storages
+                   that the traced ops allocated on this rank and that are
+                   not the run's outputs (XLA's ``temp_size_in_bytes``): a
+                   storage counts once however many views share it, from the
+                   op that allocates it until its last tensor dies;
+                   arguments and what they alias are not counted.  A loop
+                   run as one trip allocates one trip's temporaries, as a
+                   scan holds one trip's at once.
 
 Constants of one NVIDIA H100 SXM5 at its full power limit of 700 W:
 
@@ -56,8 +71,11 @@ Constants of one NVIDIA H100 SXM5 at its full power limit of 700 W:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -123,6 +141,20 @@ def _shape_bytes(shape, dtype) -> int:
     return math.prod(shape) * dtype.itemsize
 
 
+_TRIPS: contextvars.ContextVar = contextvars.ContextVar("loop_trips", default=1)
+
+
+@contextlib.contextmanager
+def loop_trips(n: int):
+    """Count the traced ops inside as ``n`` trips of a loop (scopes nest:
+    their trips multiply).  No-op outside a trace."""
+    token = _TRIPS.set(_TRIPS.get() * n)
+    try:
+        yield
+    finally:
+        _TRIPS.reset(token)
+
+
 def _tensors(tree) -> List[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -141,7 +173,11 @@ def _nbytes(tree) -> int:
 class TraceAnalysis:
     """Per-rank totals of one traced run (the reference's ``HLOAnalysis``);
     ``raw_bytes`` counts operand + result bytes of every op, fused or not;
-    ``ops`` holds each (op, local shapes) once with its totals."""
+    ``ops`` holds each (op, local shapes) once with its totals, a
+    collective's key ending in `` @`` and its process group's name;
+    ``temp_bytes`` is the peak of the temporaries (module docstring), and
+    ``temp_at_peak`` their bytes then, by the op and result that made
+    them."""
 
     flops: float
     traffic_bytes: float
@@ -151,6 +187,8 @@ class TraceAnalysis:
     raw_bytes: float = 0.0
     ops: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
     collective_bytes_by_group: Dict[str, float] = dataclasses.field(default_factory=dict)
+    temp_bytes: int = 0
+    temp_at_peak: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def collective_bytes_by_axis(self, mesh) -> Dict[str, float]:
         """Collective bytes by the mesh axis whose process group ran them."""
@@ -165,10 +203,74 @@ class TraceAnalysis:
         return sum(self.collective_bytes.values())
 
 
+class _LiveStorages:
+    """The storages that the traced ops allocate on this rank, with a
+    timeline of their allocations and frees: a storage is known by its
+    ``StorageImpl`` (``_cdata``), which every view of it shares, and freed
+    when that dies (a finalizer on the storage's Python object, which torch
+    keeps alive as long as the storage: a tensor saved for the backward as a
+    shallow copy keeps it too)."""
+
+    def __init__(self):
+        self.live: Dict[int, int] = {}   # StorageImpl -> allocation number
+        self.events: List[Tuple[int, int]] = []  # (allocation number, +/- bytes)
+        self.made: Dict[int, str] = {}   # allocation number -> "op dtype[shape]"
+
+    def note(self, op, args, kwargs, out):
+        """Record the storages of ``out`` that are new: neither tracked nor
+        an input's (a view or in-place result of an argument is the
+        argument's)."""
+        inputs = None
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            if st._cdata in self.live:
+                continue
+            if inputs is None:
+                inputs = {a.untyped_storage()._cdata for a in _tensors((args, kwargs))}
+            if st._cdata in inputs:
+                continue
+            n = len(self.events)
+            self.live[st._cdata] = n
+            self.made[n] = f"{op} {_dtype_name(t.dtype)}{list(t.shape)}"
+            self.events.append((n, st.nbytes()))
+            weakref.finalize(st, self._free, st._cdata, n, st.nbytes())
+
+    def _free(self, key, n, nbytes):
+        self.live.pop(key, None)
+        self.events.append((n, -nbytes))
+
+    def peak(self, out) -> Tuple[int, Dict[str, int]]:
+        """The largest sum of live bytes over the timeline, leaving out the
+        allocations that hold ``out``'s tensors (the run's outputs), and the
+        bytes live then by the op and result that allocated them."""
+        skip = set()
+        for t in _tensors(out):
+            key = getattr(t, "_local_tensor", t).untyped_storage()._cdata
+            if key in self.live:
+                skip.add(self.live[key])
+        events = [(n, b) for n, b in self.events if n not in skip]
+        cur = peak = at = 0
+        for i, (_, b) in enumerate(events):
+            cur += b
+            if cur > peak:
+                peak, at = cur, i + 1
+        live: Dict[int, int] = {}
+        for n, b in events[:at]:
+            if b > 0:
+                live[n] = b
+            else:
+                live.pop(n, None)
+        by_op: Dict[str, int] = {}
+        for n, b in live.items():
+            by_op[self.made[n]] = by_op.get(self.made[n], 0) + b
+        return peak, dict(sorted(by_op.items(), key=lambda kv: -kv[1]))
+
+
 def _trace_mode():
     """A ``TorchDispatchMode`` that counts per-rank flops, traffic and
-    collective bytes (built here: the module imports no dispatch machinery
-    until a trace runs)."""
+    collective bytes, each multiplied by the active ``loop_trips``, and
+    records the storages its ops allocate (built here: the module imports no
+    dispatch machinery until a trace runs)."""
     from torch._subclasses.fake_tensor import FakeTensor
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -178,49 +280,54 @@ def _trace_mode():
         def __init__(self):
             super().__init__()
             self.an = TraceAnalysis(0.0, 0.0, {k: 0.0 for k in _COLLECTIVES}, {k: 0 for k in _COLLECTIVES}, 0)
+            self.storages = _LiveStorages()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented  # DTensor runs it on the local shards, which come back here
             out = func(*args, **kwargs)
-            if any(issubclass(t, FakeTensor) for t in types):
+            if any(issubclass(t, FakeTensor) for t in types) or any(
+                    isinstance(t, FakeTensor) for t in _tensors(out)):
                 return out  # sharding propagation on the global shapes, not this rank's work
-            self._count(func, args, kwargs, out)
+            self._count(func, args, kwargs, out, _TRIPS.get())
+            self.storages.note(func._overloadpacket._qualified_op_name, args, kwargs, out)
             return out
 
-        def _count(self, func, args, kwargs, out):
+        def _count(self, func, args, kwargs, out, trips):
             an = self.an
             packet = func._overloadpacket
             ns, name = packet._qualified_op_name.split("::")
-            an.n_ops += 1
+            an.n_ops += trips
             flops = 0.0
             if packet in flop_registry:
                 flops = float(flop_registry[packet](*args, **kwargs, out_val=out))
             traffic = 0.0
+            where = ""
             coll = _C10D.get(name) if ns == "_c10d_functional" else None
             if coll is not None:
                 ob = _nbytes(args)
-                an.collective_bytes[coll] += ob
-                an.collective_counts[coll] += 1
+                an.collective_bytes[coll] += trips * ob
+                an.collective_counts[coll] += trips
                 group = [a for a in args if isinstance(a, str)][-1]  # the op's group name
-                an.collective_bytes_by_group[group] = an.collective_bytes_by_group.get(group, 0.0) + ob
+                an.collective_bytes_by_group[group] = an.collective_bytes_by_group.get(group, 0.0) + trips * ob
                 traffic += ob
+                where = f" @{group}"
             elif name in _UPDATE_OPS:
                 # the update: index_copy's source (argument 3), a slice scatter's src (1)
                 upd = args[3] if name == "index_copy" else args[1]
                 traffic += 2 * _nbytes(upd)
             elif name in _TRAFFIC_OPS:
                 traffic += _nbytes(args) + _nbytes(out)
-            an.flops += flops
-            an.traffic_bytes += traffic
-            an.raw_bytes += _nbytes(args) + _nbytes(out)
+            an.flops += trips * flops
+            an.traffic_bytes += trips * traffic
+            an.raw_bytes += trips * (_nbytes(args) + _nbytes(out))
             key = f"{ns}::{name} " + " ".join(
-                f"{_dtype_name(t.dtype)}{list(t.shape)}" for t in _tensors(args))
+                f"{_dtype_name(t.dtype)}{list(t.shape)}" for t in _tensors(args)) + where
             rec = an.ops.setdefault(key, {"count": 0, "flops": 0.0, "bytes": 0.0})
-            rec["count"] += 1
-            rec["flops"] += flops
-            rec["bytes"] += traffic
+            rec["count"] += trips
+            rec["flops"] += trips * flops
+            rec["bytes"] += trips * traffic
 
     return _Mode()
 
@@ -243,6 +350,7 @@ def analyze(fn, *args, **kwargs) -> Tuple[Any, TraceAnalysis]:
         with mode:
             out = fn(*args, **kwargs)
     an = mode.an
+    an.temp_bytes, an.temp_at_peak = mode.storages.peak(out)
     seen = sum(an.collective_counts.values())
     counted = comm.get_total_counts()
     if seen != counted:
